@@ -1,0 +1,25 @@
+"""go_tfhe_tpu_torch — the PyTorch and CUDA port of ``go_tfhe_tpu``.
+
+A second package beside the JAX one, with the same module names and the
+same array layouts at every public function (torus words as ``torch.int32``
+with the uint32 bits).  It imports ``torch`` and numpy, never ``jax``.  The
+blind-rotation step runs hand-written Hopper kernels (``csrc/``) on CUDA
+tensors and their plain PyTorch versions on CPU tensors.
+
+Served so far: keygen, encryption, the batched gate bootstrap and the ten
+two-input gates for the plain profiles (``poly_extend_factor == 1``) with
+uniform binary keys; ``128bit_fast`` is the profile the card runs.
+"""
+
+from . import cipher, engine, gates, keys, ops, utils
+from . import params as params_module
+from .cipher import (lwe_decrypt_bool, lwe_encrypt_bool, lwe_encrypt_torus,
+                     lwe_phase)
+from .engine import bootstrap, bootstrap_many, bootstrap_without_key_switch
+from .keys import (CloudKey, SecretKey, cloud_key_from_numpy, gen_cloud_key,
+                   gen_secret_key, load_cloud_key, load_secret_key,
+                   save_cloud_key, save_secret_key, secret_key_from_numpy)
+from .params import (DEFAULT, P80, P110, P128, P128_FAST, PROFILES,
+                     TEST_FAST, TFHEParams, get_params)
+
+__version__ = "0.1.0"

@@ -1,0 +1,167 @@
+"""Secret and cloud (evaluation) keys: generation, conversion, ``.npz`` files
+(port of ``go_tfhe_tpu/keys.py:44-157, 223-302``).
+
+The ``.npz`` format is the JAX package's (``keys.save_cloud_key`` /
+``save_secret_key``): uint32 arrays ``testvec``, ``ksk``, ``bsk``, the
+profile name and the ``block_binary`` flag; files written by either
+package load in the other.  The CloudKey keeps the raw BSK and the K2
+bands built from it (ops/cuda_t.pack_bsk_band_t).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from . import cipher
+from .ops.cuda_t import pack_bsk_band_t
+from .params import TFHEParams, get_params
+from .utils.rng import binary_key
+from .utils.torus import TORUS, f64_to_torus, from_numpy_u32, i32
+from .utils.torus import to_numpy_u32
+
+
+@dataclasses.dataclass
+class SecretKey:
+    """Binary secret keys for both levels (key/key.go:10-13)."""
+    lv0: torch.Tensor   # (lwe_n,) int32 in {0,1}
+    lv1: torch.Tensor   # (n,)     int32 in {0,1}
+    block_binary: bool = False
+
+    def to(self, device) -> "SecretKey":
+        return dataclasses.replace(self, lv0=self.lv0.to(device),
+                                   lv1=self.lv1.to(device))
+
+
+@dataclasses.dataclass
+class CloudKey:
+    """Public evaluation key (cloudkey/cloudkey.go:16-21)."""
+    testvec: torch.Tensor   # (2, N) — constant-1/8 test vector
+    ksk: torch.Tensor       # (N, iks_t, base, lwe_n+1); [.., 0, :] == 0
+    bsk: torch.Tensor       # (lwe_n, 2L, 2, N) — raw TRGSW form
+    bands: torch.Tensor     # (lwe_n, 2, 2L, 2N) — K2 bands, limb drop folded
+    params: TFHEParams
+    block_binary: bool = False
+
+    def to(self, device) -> "CloudKey":
+        return dataclasses.replace(
+            self, testvec=self.testvec.to(device), ksk=self.ksk.to(device),
+            bsk=self.bsk.to(device), bands=self.bands.to(device))
+
+
+def gen_secret_key(gen: torch.Generator, p: TFHEParams, device,
+                   block_binary: bool = False) -> SecretKey:
+    """Uniform binary keys for both levels (key/key.go:16-45)."""
+    if block_binary:
+        raise NotImplementedError(
+            "block-binary secret keys are not ported yet (ROADMAP Queue 1 "
+            "item 9, block blind rotation)")
+    return SecretKey(lv0=binary_key(gen, p.lwe_n, device),
+                     lv1=binary_key(gen, p.n, device))
+
+
+def gen_testvec(p: TFHEParams, device) -> torch.Tensor:
+    """Constant 1/8 test vector: A = 0, B[i] = T(1/8)
+    (cloudkey/cloudkey.go:74-85)."""
+    if p.poly_extend_factor != 1:
+        raise NotImplementedError(
+            "extended test vectors are not ported yet (ROADMAP Queue 1 "
+            "item 8, extended LUTs)")
+    tv = torch.zeros((2, p.n), dtype=TORUS, device=device)
+    tv[1] = i32(int(f64_to_torus(0.125)))
+    return tv
+
+
+def gen_ksk(gen: torch.Generator, p: TFHEParams, sk: SecretKey
+            ) -> torch.Tensor:
+    """KSK[i,j,k] encrypts k * s1[i] / 2^((j+1)*basebit) under lv0; the k==0
+    rows stay zero (cloudkey/cloudkey.go:88-120, keys.py:141-142)."""
+    dev = sk.lv0.device
+    ks = torch.arange(p.base, dtype=TORUS, device=dev)
+    shifts = torch.tensor([32 - (j + 1) * p.basebit for j in range(p.iks_t)],
+                          dtype=TORUS, device=dev)
+    mu = (ks[None, None, :] * sk.lv1[:, None, None]) << shifts[None, :, None]
+    ct = cipher.lwe_encrypt_torus(gen, mu, p.ksk_alpha, sk.lv0)
+    ct[:, :, 0, :] = 0
+    return ct
+
+
+def gen_bsk(gen: torch.Generator, p: TFHEParams, sk: SecretKey
+            ) -> torch.Tensor:
+    """BSK[i] = TRGSW encryption of LWE key bit s0[i]
+    (cloudkey/cloudkey.go:123-145), on the key_grid_bits grid."""
+    return cipher.trgsw_encrypt_torus(gen, sk.lv0, p.bsk_alpha, sk.lv1, p)
+
+
+def _cloud_key(p: TFHEParams, testvec, ksk, bsk, block_binary) -> CloudKey:
+    lo = p.kernel_limb_drop if p.digit_limbs == 1 else 0
+    return CloudKey(testvec=testvec, ksk=ksk, bsk=bsk,
+                    bands=pack_bsk_band_t(bsk, lo), params=p,
+                    block_binary=block_binary)
+
+
+def gen_cloud_key(gen: torch.Generator, sk: SecretKey, p: TFHEParams
+                  ) -> CloudKey:
+    """cloudkey/cloudkey.go:24-31; on the secret key's device."""
+    bsk = gen_bsk(gen, p, sk)
+    ksk = gen_ksk(gen, p, sk)
+    return _cloud_key(p, gen_testvec(p, sk.lv0.device), ksk, bsk,
+                      sk.block_binary)
+
+
+# ---------------------------------------------------------------------------
+# Conversion from the JAX package's arrays, and .npz files.
+# ---------------------------------------------------------------------------
+
+def cloud_key_from_numpy(profile, testvec, ksk, bsk,
+                         block_binary: bool = False, device="cpu"
+                         ) -> CloudKey:
+    """A CloudKey from the JAX package's uint32 arrays (the fields
+    ``go_tfhe_tpu.keys.save_cloud_key`` writes); bands built from ``bsk``.
+    ``profile`` is a registered profile's name or a :class:`TFHEParams`."""
+    p = profile if isinstance(profile, TFHEParams) else get_params(profile)
+    return _cloud_key(p, from_numpy_u32(testvec, device),
+                      from_numpy_u32(ksk, device),
+                      from_numpy_u32(bsk, device), bool(block_binary))
+
+
+def secret_key_from_numpy(lv0, lv1, block_binary: bool = False,
+                          device="cpu") -> SecretKey:
+    return SecretKey(lv0=from_numpy_u32(lv0, device),
+                     lv1=from_numpy_u32(lv1, device),
+                     block_binary=bool(block_binary))
+
+
+def save_secret_key(path: str, sk: SecretKey) -> None:
+    np.savez_compressed(path, lv0=to_numpy_u32(sk.lv0),
+                        lv1=to_numpy_u32(sk.lv1),
+                        block_binary=np.asarray(sk.block_binary))
+
+
+def load_secret_key(path: str, device="cpu") -> SecretKey:
+    with np.load(path) as z:
+        return secret_key_from_numpy(
+            z["lv0"], z["lv1"],
+            bool(z["block_binary"]) if "block_binary" in z else False,
+            device)
+
+
+def save_cloud_key(path: str, ck: CloudKey) -> None:
+    np.savez_compressed(
+        path,
+        profile=np.asarray(ck.params.name),
+        testvec=to_numpy_u32(ck.testvec),
+        ksk=to_numpy_u32(ck.ksk),
+        bsk=to_numpy_u32(ck.bsk),
+        block_binary=np.asarray(ck.block_binary),
+    )
+
+
+def load_cloud_key(path: str, device="cpu") -> CloudKey:
+    with np.load(path) as z:
+        return cloud_key_from_numpy(
+            str(z["profile"]), z["testvec"], z["ksk"], z["bsk"],
+            bool(z["block_binary"]) if "block_binary" in z else False,
+            device)

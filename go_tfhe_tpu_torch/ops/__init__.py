@@ -1,0 +1,15 @@
+"""Compute kernels: exact negacyclic arithmetic, decomposition, rotation,
+the blind-rotation step kernels (``cuda_t``), blind rotation, key switching
+and sample extraction."""
+
+from .blindrotate import blind_rotate_t, mod_switch_2n
+from .cuda_t import (extprod_t, extprod_t_ref, launch_counts,
+                     pack_bsk_band_t, reset_launch_counts, rotate_decompose_t,
+                     rotate_decompose_t_ref)
+from .decompose import gadget_decompose
+from .keyswitch import identity_key_switch, ks_digits
+from .polymul import (ext_band_from_trgsw, negacyclic_extprod_toeplitz,
+                      negacyclic_mul_binary, split_balanced_limbs_i8,
+                      split_signed_limbs_i8, toeplitz_from_band)
+from .rotate import monomial_mul, monomial_mul_log
+from .sample_extract import sample_extract

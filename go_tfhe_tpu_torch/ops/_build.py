@@ -1,0 +1,105 @@
+"""Build and load the Hopper kernels in ``go_tfhe_tpu_torch/csrc/``.
+
+Route: ``nvcc`` compiles the ``.cu`` sources (plain C entry points, no
+PyTorch headers) into one shared library for ``sm_90a``, loaded with
+``ctypes``.  The build happens at first use, into
+``go_tfhe_tpu_torch/build/`` (listed in ``.gitignore``); the library's name
+carries a hash of the sources and flags, so an edited source rebuilds.
+
+:func:`load_library` raises ``RuntimeError`` when there is no CUDA device
+or no ``nvcc``; no caller catches it, so a CUDA tensor never silently takes
+a plain path.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import time
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "build")
+SOURCES = ("rotdec_t.cu", "extprod_t.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # acc, amounts, out, n, b, l, bgbit, offset, nd, stream
+    "tfhe_rotdec_t": (_P, _P, _P, _I, _I, _I, _I, ctypes.c_uint32, _I, _P),
+    # digits, band, acc, out, n, b, l2, nd, stream
+    "tfhe_extprod_t": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+}
+
+_lib = None           # the loaded library: built and loaded once per process
+
+
+def _nvcc() -> str:
+    """The nvcc of the CUDA toolkit PyTorch finds (CUDA_HOME, PATH, or the
+    toolkit's default install location)."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    nvcc = os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else None
+    if nvcc is None or not os.path.exists(nvcc):
+        raise RuntimeError(
+            "go_tfhe_tpu_torch: cannot build the CUDA kernels: no nvcc found "
+            "(set CUDA_HOME to a CUDA toolkit with Hopper support)")
+    return nvcc
+
+
+def library_path() -> str:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"libtfhe_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build() -> dict:
+    """Compile the kernels unless the current sources are already built.
+
+    Returns {"path", "seconds", "log"}: the library, the compile's wall
+    time (0 when nothing was compiled) and nvcc's output (ptxas register
+    and shared-memory report)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "go_tfhe_tpu_torch: the CUDA kernels need a CUDA device; "
+            "torch.cuda.is_available() is False")
+    path = library_path()
+    if os.path.exists(path):
+        return {"path": path, "seconds": 0.0, "log": ""}
+    nvcc = _nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
+           *[os.path.join(CSRC_DIR, s) for s in SOURCES]]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = res.stdout + res.stderr
+    if res.returncode != 0:
+        raise RuntimeError(f"go_tfhe_tpu_torch: nvcc failed "
+                           f"(exit {res.returncode}):\n{log}")
+    os.replace(tmp, path)          # atomic: concurrent builders agree
+    return {"path": path, "seconds": seconds, "log": log}
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernel library, built if needed, with every entry point's
+    argument types declared (pointers and the stream as c_void_p, so
+    64-bit addresses are never cut)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build()["path"])
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib

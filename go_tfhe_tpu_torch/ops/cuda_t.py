@@ -1,0 +1,169 @@
+"""The blind-rotation step's two kernels, transposed layout: polynomial
+coefficients major, ciphertext batch fastest (port of
+``go_tfhe_tpu/ops/pallas_t.py:59-265``).
+
+Layouts (the JAX package's, words as int32):
+  acc     (2, N, B)         — channel-major accumulators
+  digits  (ND*2L*N, B) int8 — limb-major rows [(i, c, lv)] * N + n
+  band    (2, 2L, 2N) int32 — this port's own band (:func:`pack_bsk_band_t`)
+
+Each kernel has a wrapper and a plain PyTorch version beside it:
+
+* K1 :func:`rotate_decompose_t` / :func:`rotate_decompose_t_ref` —
+  ``csrc/rotdec_t.cu``;
+* K2 :func:`extprod_t` / :func:`extprod_t_ref` — ``csrc/extprod_t.cu``.
+
+A wrapper runs the plain version for CPU tensors and launches the CUDA
+kernel for CUDA tensors; it never falls back from one to the other.  Each
+launch adds one to ``launch_counts[<wrapper name>]``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..params import TFHEParams
+from ..utils.torus import TORUS
+from . import _build
+from .decompose import gadget_decompose
+from .polymul import (ext_band_from_trgsw, matmul_mod32,
+                      split_balanced_limbs_i8, split_signed_limbs_i8,
+                      toeplitz_from_band)
+from .rotate import monomial_mul
+
+# extprod_t.cu's output tile: N must be a multiple of its TN.
+_EXTPROD_TN = 64
+
+launch_counts = {"rotate_decompose_t": 0, "extprod_t": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def pack_bsk_band_t(bsk: torch.Tensor, lo: int = 0) -> torch.Tensor:
+    """Raw BSK (n0, 2L, 2, N) int32 words -> K2's bands (n0, 2, 2L, 2N).
+
+    band[i, c, r, x] = D'[x] for BSK row r, channel c, where
+    D = concat(-K, K) (so the negacyclic product reads D[N + n - j]) and
+    D' = D - sum_{l < lo} limb_l(D) * 2^(8l) removes the ``lo`` lowest
+    balanced base-256 limbs that the TPU kernel drops
+    (``kernel_limb_drop``).  For on-grid keys (key_grid_bits >= 8*lo)
+    those limbs are zero and D' == D."""
+    d = ext_band_from_trgsw(bsk)                  # (n0, 2L, 2, 2N)
+    if lo:
+        limbs = split_balanced_limbs_i8(d, lo).to(TORUS)
+        for l in range(lo):
+            d = d - (limbs[l] << (8 * l))
+    return d.transpose(1, 2).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# K1: rotate + decompose.
+# ---------------------------------------------------------------------------
+
+def rotate_decompose_t_ref(p: TFHEParams, acc: torch.Tensor,
+                           amounts: torch.Tensor) -> torch.Tensor:
+    """Plain K1: gather rotation, gadget_decompose, signed limb split.
+
+    acc (2, N, B) int32 words; amounts (B,) int32 in [0, 2N].  Returns
+    (ND*2L*N, B) int8 digit limbs of X^amount . acc - acc."""
+    _, n, b = acc.shape
+    nd = p.digit_limbs
+    x = acc.permute(2, 0, 1)                                   # (B, 2, N)
+    rot = monomial_mul(x, amounts[:, None])
+    digits = gadget_decompose(rot - x, p)                      # (B, 2L, N)
+    if nd == 1:
+        limbs = digits[None].to(torch.int8)
+    else:
+        limbs = split_signed_limbs_i8(digits, nd)              # (nd, B, 2L, N)
+    return limbs.permute(0, 2, 3, 1).reshape(nd * 2 * p.l * n, b).contiguous()
+
+
+def rotate_decompose_t(p: TFHEParams, acc: torch.Tensor,
+                       amounts: torch.Tensor) -> torch.Tensor:
+    """K1 (replaces pallas_t.rotate_decompose_t): see the ref's contract."""
+    if acc.device.type == "cpu":
+        return rotate_decompose_t_ref(p, acc, amounts)
+    _, n, b = acc.shape
+    _check("acc", acc, TORUS, (2, n, b), acc.device)
+    _check("amounts", amounts, torch.int32, (b,), acc.device)
+    nd = p.digit_limbs
+    out = torch.empty((nd * 2 * p.l * n, b), dtype=torch.int8,
+                      device=acc.device)
+    lib = _build.load_library()
+    with torch.cuda.device(acc.device):
+        rc = lib.tfhe_rotdec_t(
+            acc.data_ptr(), amounts.data_ptr(), out.data_ptr(), n, b, p.l,
+            p.bgbit, p.decomposition_offset, nd,
+            torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"rotdec_t kernel launch failed: CUDA error {rc}")
+    launch_counts["rotate_decompose_t"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K2: external product.
+# ---------------------------------------------------------------------------
+
+def extprod_t_ref(digits: torch.Tensor, band: torch.Tensor,
+                  acc: torch.Tensor, nd: int = 1) -> torch.Tensor:
+    """Plain K2: exact Toeplitz contraction.
+
+    digits (ND*2L*N, B) int8 limb-major; band (2, 2L, 2N) int32 from
+    :func:`pack_bsk_band_t` (its ``lo`` drop folded in); acc (2, N, B).
+    Returns acc + sum_{r,j} d[r,j] * band[c, r, N+n-j] mod 2^32, with
+    d = sum_i limb_i * 256^i.  The same value as the TPU kernel's limb-pair
+    dots: pairs of weight >= 2^32 vanish mod 2^32.  Runs on any device
+    (polymul.matmul_mod32: float64 products of 16-bit halves)."""
+    _, l2, n2 = band.shape
+    n = n2 // 2
+    b = digits.shape[1]
+    limbs = digits.reshape(nd, l2 * n, b).to(TORUS)
+    d = limbs[0]
+    for i in range(1, nd):
+        d = d + limbs[i] * (1 << (8 * i))
+    t = toeplitz_from_band(band)                    # (2, 2L, N, N) [c,r,j,n]
+    t = t.permute(0, 3, 1, 2).reshape(2, n, l2 * n)
+    return acc + matmul_mod32(t, d)
+
+
+def extprod_t(digits: torch.Tensor, band: torch.Tensor, acc: torch.Tensor,
+              nd: int = 1) -> torch.Tensor:
+    """K2 (replaces pallas_t.extprod_t): see the ref's contract.  Returns a
+    new (2, N, B) tensor; ``acc`` is not modified."""
+    if acc.device.type == "cpu":
+        return extprod_t_ref(digits, band, acc, nd)
+    _, n, b = acc.shape
+    l2 = band.shape[1]
+    if n % _EXTPROD_TN:
+        raise ValueError(f"extprod_t: N={n} is not a multiple of "
+                         f"{_EXTPROD_TN}")
+    _check("acc", acc, TORUS, (2, n, b), acc.device)
+    _check("band", band, TORUS, (2, l2, 2 * n), acc.device)
+    _check("digits", digits, torch.int8, (nd * l2 * n, b), acc.device)
+    out = torch.empty_like(acc)
+    lib = _build.load_library()
+    with torch.cuda.device(acc.device):
+        rc = lib.tfhe_extprod_t(
+            digits.data_ptr(), band.data_ptr(), acc.data_ptr(),
+            out.data_ptr(), n, b, l2, nd,
+            torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"extprod_t kernel launch failed: CUDA error {rc}")
+    launch_counts["extprod_t"] += 1
+    return out
+
+
+def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
+    if t.device.type != "cuda" or t.device != device:
+        raise ValueError(f"{name}: expected a tensor on {device}, got "
+                         f"{t.device}")
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected {dtype} {tuple(shape)}, got "
+                         f"{t.dtype} {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
