@@ -6,20 +6,25 @@ with the uint32 bits).  It imports ``torch`` and numpy, never ``jax``.  The
 blind-rotation step runs hand-written Hopper kernels (``csrc/``) on CUDA
 tensors and their plain PyTorch versions on CPU tensors.
 
-Served so far: keygen, encryption, the batched gate bootstrap and the ten
-two-input gates for the plain profiles (``poly_extend_factor == 1``) with
-uniform binary keys; ``128bit_fast`` is the profile the card runs.
+Served so far, with uniform binary keys: keygen, encryption, the batched
+gate bootstrap, the ten two-input gates and ``AND_OR``, programmable
+bootstrapping (``lut``: shared and per-ciphertext tables) and the many-LUT
+bootstrap on the plain profiles, and extended look-up tables at uint6 and
+uint7 (and their centered variants).  The card runs ``128bit_fast``,
+``uint6_centered`` and ``uint7_centered``.
 """
 
-from . import cipher, engine, gates, keys, ops, utils
+from . import cipher, engine, gates, keys, lut, ops, utils
 from . import params as params_module
-from .cipher import (lwe_decrypt_bool, lwe_encrypt_bool, lwe_encrypt_torus,
-                     lwe_phase)
+from .cipher import (lwe_decrypt_bool, lwe_decrypt_message, lwe_encrypt_bool,
+                     lwe_encrypt_message, lwe_encrypt_torus, lwe_phase)
 from .engine import bootstrap, bootstrap_many, bootstrap_without_key_switch
 from .keys import (CloudKey, SecretKey, cloud_key_from_numpy, gen_cloud_key,
                    gen_secret_key, load_cloud_key, load_secret_key,
                    save_cloud_key, save_secret_key, secret_key_from_numpy)
 from .params import (DEFAULT, P80, P110, P128, P128_FAST, PROFILES,
-                     TEST_FAST, TFHEParams, get_params)
+                     TEST_BLOCK, TEST_EXT2, TEST_EXT3, TEST_FAST, TEST_NIBBLE,
+                     TEST_PBS, UINT1, UINT2, UINT3, UINT4, UINT5, UINT6,
+                     UINT7, UINT8, TFHEParams, get_params)
 
 __version__ = "0.1.0"

@@ -1,5 +1,5 @@
-"""Ciphertexts: encryption, decryption, phase (port of
-``go_tfhe_tpu/cipher.py:38-75, 126-191``).
+"""Ciphertexts: encryption, decryption, phase, message encoding (port of
+``go_tfhe_tpu/cipher.py:38-98, 126-191``).
 
 Layouts as in the JAX package, words as int32:
 
@@ -14,12 +14,13 @@ tensors on the key's device.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .ops.polymul import negacyclic_mul_binary
 from .params import TFHEParams
 from .utils.rng import gaussian_torus, uniform_torus
-from .utils.torus import TORUS, f64_to_torus, i32, wrap_i32
+from .utils.torus import TORUS, f64_to_torus, from_numpy_u32, i32, wrap_i32
 
 BOOL_TRUE_MU = i32(int(f64_to_torus(0.125)))    # tlwe/tlwe.go:56
 BOOL_FALSE_MU = i32(int(f64_to_torus(-0.125)))  # tlwe/tlwe.go:58
@@ -63,6 +64,39 @@ def lwe_encrypt_bool(gen: torch.Generator, bits, alpha: float,
 def lwe_decrypt_bool(ct: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
     """Sign of the phase (tlwe/tlwe.go:64-73)."""
     return lwe_phase(ct, key) >= 0
+
+
+# ---------------------------------------------------------------------------
+# Messages of a modulus-m space (programmable bootstrapping).
+# ---------------------------------------------------------------------------
+
+def encode_message(message, modulus: int) -> np.ndarray:
+    """LWE message encoding m -> m * 2^31/modulus as uint32 words
+    (tlwe/programmable_encrypt.go:12-26, computed exactly in float64)."""
+    m = np.mod(np.asarray(message, np.int64), modulus)
+    scale = float(1 << 31) / float(modulus)
+    return f64_to_torus(m.astype(np.float64) * scale / float(1 << 32))
+
+
+def lwe_encrypt_message(gen: torch.Generator, message, modulus: int,
+                        alpha: float, key: torch.Tensor) -> torch.Tensor:
+    """Encrypt message(s) of Z_modulus (host ints or an array) under a
+    binary LWE key; on the key's device."""
+    return lwe_encrypt_torus(
+        gen, from_numpy_u32(encode_message(message, modulus), key.device),
+        alpha, key)
+
+
+def lwe_decrypt_message(ct: torch.Tensor, modulus: int,
+                        key: torch.Tensor) -> torch.Tensor:
+    """DivRound decode (tlwe/programmable_encrypt.go:32-54) of the uint32
+    phase: scale = 2^31 // modulus, msg = ((phase + scale/2) // scale) mod
+    modulus, with the phase read unsigned (int64) and the sum wrapped mod
+    2^32 as in uint32 arithmetic.  Returns int32 messages."""
+    phase = lwe_phase(ct, key).to(torch.int64) & 0xFFFFFFFF
+    scale = (1 << 31) // modulus
+    decoded = ((phase + scale // 2) & 0xFFFFFFFF) // scale
+    return (decoded % modulus).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------

@@ -25,102 +25,56 @@
 // T[n, j] = window[(n - n0) + 31 - (j - j0)].  The 32 threads of a warp
 // share n (window reads broadcast) and cover 128 consecutive b (one
 // conflict-free 16-byte digit read each).  Per 32 IMADs a thread issues
-// one 16-byte and at most eight 4-byte shared-memory reads.  The s8 tensor
-// cores (mma.sync / wgmma) offer over ten times the CUDA cores' rate for
-// this product; using them is later work.
+// one 16-byte and at most eight 4-byte shared-memory reads.  The digit
+// staging is the other cost: the kernel is templated on ND, and for B a
+// multiple of 4 a thread reads four ciphertexts' limbs per 4-byte load, all
+// of its loads of a stage issued before the first is used (measured on an
+// H100 at 700 W: 3.67 -> 2.38 ms per call at 128bit_fast, B 4096, against
+// one byte per load in a loop over a run-time ND).  The s8 tensor cores
+// (mma.sync / wgmma) offer over ten times the CUDA cores' rate for this
+// product; using them is later work.  The tile's device code is
+// extprod_tile.cuh, shared with K5 (extprod_ext_t.cu).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "extprod_tile.cuh"
+
 namespace {
 
-constexpr int TN = 64;    // output coefficients per block
-constexpr int TB = 128;   // ciphertexts per block
-constexpr int TJ = 32;    // contraction depth per shared-memory stage
-constexpr int RN = 8;     // coefficients per thread
-constexpr int RB = 4;     // ciphertexts per thread
-constexpr int kThreads = (TN / RN) * (TB / RB);   // 256
-
-__global__ void __launch_bounds__(kThreads)
+template <int ND>
+__global__ void __launch_bounds__(kExtprodThreads)
 extprod_t_kernel(const int8_t* __restrict__ digits,
                  const int32_t* __restrict__ band,
                  const uint32_t* __restrict__ acc,
-                 uint32_t* __restrict__ out, int n, int b, int l2, int nd) {
-  __shared__ __align__(16) int32_t dig_s[TJ][TB];
-  __shared__ int32_t win_s[TN + TJ];
-  const int tx = threadIdx.x;            // 0..31: ciphertexts tx*RB ..
-  const int ty = threadIdx.y;            // 0..7:  coefficients ty*RN ..
-  const int tid = ty * blockDim.x + tx;
-  const int b0 = blockIdx.x * TB;
-  const int n0 = blockIdx.y * TN;
+                 uint32_t* __restrict__ out, int n, int b, int l2) {
   const int c = blockIdx.z;
-  const size_t plane_rows = (size_t)l2 * n;          // rows per limb plane
-  const int32_t* band_c = band + (size_t)c * l2 * 2 * n;
-
-  uint32_t sum[RN][RB];
-#pragma unroll
-  for (int k = 0; k < RN; ++k)
-#pragma unroll
-    for (int q = 0; q < RB; ++q) sum[k][q] = 0u;
-
-  for (int r = 0; r < l2; ++r) {
-    const int32_t* brow = band_c + (size_t)r * 2 * n;
-    for (int j0 = 0; j0 < n; j0 += TJ) {
-      // window start >= N + 0 - (N - TJ) - (TJ - 1) = 1, end <= 2N - 1
-      const int w0 = n + n0 - j0 - (TJ - 1);
-      for (int t = tid; t < TN + TJ - 1; t += kThreads) win_s[t] = brow[w0 + t];
-      for (int e = tid; e < TJ * TB; e += kThreads) {
-        const int jj = e / TB;
-        const int bb = e % TB;
-        const int bg = b0 + bb;
-        int32_t v = 0;
-        if (bg < b) {
-          const size_t row = (size_t)r * n + j0 + jj;
-          for (int i = nd - 1; i >= 0; --i)
-            v = v * 256 + (int32_t)digits[(i * plane_rows + row) * b + bg];
-        }
-        dig_s[jj][bb] = v;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int jj = 0; jj < TJ; ++jj) {
-        const int4 d = *reinterpret_cast<const int4*>(&dig_s[jj][tx * RB]);
-#pragma unroll
-        for (int k = 0; k < RN; ++k) {
-          const uint32_t w = (uint32_t)win_s[ty * RN + k + (TJ - 1) - jj];
-          sum[k][0] += w * (uint32_t)d.x;
-          sum[k][1] += w * (uint32_t)d.y;
-          sum[k][2] += w * (uint32_t)d.z;
-          sum[k][3] += w * (uint32_t)d.w;
-        }
-      }
-      __syncthreads();
-    }
-  }
-
-#pragma unroll
-  for (int k = 0; k < RN; ++k) {
-    const size_t rowoff = ((size_t)c * n + n0 + ty * RN + k) * b;
-#pragma unroll
-    for (int q = 0; q < RB; ++q) {
-      const int bg = b0 + tx * RB + q;
-      if (bg < b) out[rowoff + bg] = acc[rowoff + bg] + sum[k][q];
-    }
-  }
+  const size_t chan = (size_t)c * n * b;
+  extprod_tile<ND>(digits, band + (size_t)c * l2 * 2 * n, acc + chan,
+                   out + chan, n, b, l2, blockIdx.y * TN, blockIdx.x * TB);
 }
 
 }  // namespace
 
 // digits (nd*l2*N, B) int8, band (2, l2, 2N) int32, acc and out (2, N, B)
-// uint32; N a multiple of TN.  Launches on `stream`; returns
-// cudaGetLastError().
+// uint32; N a multiple of TN, 1 <= nd <= 4.  Launches on `stream`; returns
+// cudaGetLastError() (cudaErrorInvalidValue for another nd).
 extern "C" int tfhe_extprod_t(const void* digits, const void* band,
                               const void* acc, void* out, int n, int b,
                               int l2, int nd, void* stream) {
   dim3 block(TB / RB, TN / RN);
   dim3 grid((b + TB - 1) / TB, n / TN, 2);
-  extprod_t_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)digits, (const int32_t*)band, (const uint32_t*)acc,
-      (uint32_t*)out, n, b, l2, nd);
+  auto launch = [&](auto kernel) {
+    kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+        (const int8_t*)digits, (const int32_t*)band, (const uint32_t*)acc,
+        (uint32_t*)out, n, b, l2);
+  };
+  switch (nd) {
+    case 1: launch(extprod_t_kernel<1>); break;
+    case 2: launch(extprod_t_kernel<2>); break;
+    case 3: launch(extprod_t_kernel<3>); break;
+    case 4: launch(extprod_t_kernel<4>); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }

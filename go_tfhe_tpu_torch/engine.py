@@ -1,5 +1,5 @@
-"""The bootstrap engine (port of ``go_tfhe_tpu/engine.py:126-132, 201-244,
-337-389``).
+"""The bootstrap engine (port of ``go_tfhe_tpu/engine.py:106-132,
+168-244, 269-321, 337-389``).
 
 One code path serves both devices: blind rotation (ops/blindrotate.py)
 -> sample extraction -> identity key switch, as the JAX package's
@@ -7,17 +7,26 @@ One code path serves both devices: blind rotation (ops/blindrotate.py)
 their plain versions on CPU tensors and the Hopper kernels on CUDA tensors.
 The kernels mask a ragged batch themselves, so no batch padding is needed.
 
-Served so far: per-bit blind rotation of plain profiles (poly_extend_factor
-== 1) with uniform binary keys.  Extended look-up tables, block-binary keys
-and ``bootstrap_many`` raise ``NotImplementedError`` on every device.
+Routing follows the JAX dispatch (``_tpu_core_choice``), so each profile
+reaches the counterpart of the TPU kernel the JAX package reaches:
+
+* plain profiles (poly_extend_factor == 1): ``blind_rotate_t``, K1 + K2;
+* extended profiles that pass ``ext_t_fits`` (uint6, uint7 and their
+  centered variants, the toy ``test_ext2/3``): ``blind_rotate_extended_t``,
+  K4 + K5, as ``_bootstrap_core_ext_t``;
+* uint8 (k = 9) and block-binary keys raise ``NotImplementedError`` on
+  every device, naming the ROADMAP items that port their kernels.
 """
 
 from __future__ import annotations
 
+import warnings
+
 import torch
 
 from .keys import CloudKey
-from .ops.blindrotate import blind_rotate_t
+from .ops.blindrotate import blind_rotate_extended_t, blind_rotate_t
+from .ops.cuda_ext_t import ext_t_fits
 from .ops.keyswitch import identity_key_switch
 from .ops.sample_extract import sample_extract
 from .utils.torus import f64_to_torus, i32
@@ -30,11 +39,12 @@ _T_QUARTER = i32(int(f64_to_torus(0.25)))
 
 def _check_served(ck: CloudKey) -> None:
     p = ck.params
-    if p.poly_extend_factor > 1:
+    if p.poly_extend_factor > 1 and not ext_t_fits(p):
         raise NotImplementedError(
-            f"profile {p.name!r}: extended look-up tables (poly_extend_factor "
-            f"{p.poly_extend_factor}) are not ported yet (ROADMAP Queue 1 "
-            "item 8)")
+            f"profile {p.name!r}: extended look-up tables with "
+            f"poly_extend_factor {p.poly_extend_factor} run the row-major "
+            "extended kernels, which are not ported yet (ROADMAP Queue 2 "
+            "K6/K8)")
     if ck.block_binary:
         raise NotImplementedError(
             "block-binary keys and block blind rotation are not ported yet "
@@ -45,12 +55,20 @@ def _bootstrap(ck: CloudKey, ct: torch.Tensor, testvec, key_switch: bool,
                plain: bool) -> torch.Tensor:
     _check_served(ck)
     p = ck.params
+    k = p.poly_extend_factor
     tv = ck.testvec if testvec is None else testvec
+    # tv is (2, N) shared / (..., 2, N) per-ct for plain profiles,
+    # (k, 2, N) / (..., k, 2, N) for extended ones.
+    tv_shape = (2, p.n) if k == 1 else (k, 2, p.n)
     lead = ct.shape[:-1]
     ct2 = ct.reshape(-1, ct.shape[-1])
-    if tv.dim() > 2:
-        tv = tv.reshape(-1, 2, p.n)
-    rotated = blind_rotate_t(p, ck.bands, ct2, tv, plain=plain)
+    if tv.dim() > len(tv_shape):
+        tv = tv.reshape((-1,) + tv_shape)
+    if k == 1:
+        rotated = blind_rotate_t(p, ck.bands, ct2, tv, plain=plain)
+    else:                                   # big-poly coefficient 0
+        rotated = blind_rotate_extended_t(p, ck.bands, ct2, tv,
+                                          plain=plain)[:, 0]
     lv1 = sample_extract(rotated, 0)
     out = identity_key_switch(p, ck.ksk, lv1) if key_switch else lv1
     return out.reshape(lead + out.shape[-1:])
@@ -58,9 +76,11 @@ def _bootstrap(ck: CloudKey, ct: torch.Tensor, testvec, key_switch: bool,
 
 def bootstrap(ck: CloudKey, ct: torch.Tensor, testvec=None,
               plain: bool = False) -> torch.Tensor:
-    """Full gate bootstrap: (..., lwe_n+1) -> (..., lwe_n+1)
-    (evaluator/evaluator.go:139-148).  ``plain`` runs the step kernels'
-    plain versions on any device (blindrotate.blind_rotate_t)."""
+    """Full bootstrap: (..., lwe_n+1) -> (..., lwe_n+1)
+    (evaluator/evaluator.go:139-148).  ``testvec``: the cloud key's test
+    vector by default, else a look-up table, shared or per ciphertext
+    (lut.Generator).  ``plain`` runs the step kernels' plain versions on
+    any device."""
     return _bootstrap(ck, ct, testvec, key_switch=True, plain=plain)
 
 
@@ -71,12 +91,44 @@ def bootstrap_without_key_switch(ck: CloudKey, ct: torch.Tensor,
     return _bootstrap(ck, ct, testvec, key_switch=False, plain=False)
 
 
-def bootstrap_many(ck: CloudKey, ct: torch.Tensor, multi_lut, k: int,
-                   theta: int = 1, key_switch: bool = True) -> torch.Tensor:
-    """PBSmanyLUT (engine.bootstrap_many in the JAX package)."""
-    raise NotImplementedError(
-        "bootstrap_many (multi-LUT extraction) is not ported yet "
-        "(ROADMAP Queue 1 item 7)")
+def bootstrap_many(ck: CloudKey, ct: torch.Tensor, multi_lut: torch.Tensor,
+                   k: int, theta: int = 1, key_switch: bool = True,
+                   plain: bool = False) -> torch.Tensor:
+    """k function outputs from ONE blind rotation (PBSmanyLUT,
+    ``go_tfhe_tpu/engine.py:269-321``).
+
+    The mod switch rounds to multiples of 2^theta, the test vector
+    interleaves the k functions by residue (lut.Generator.gen_multi_lut),
+    and sample extraction at indices 0..k-1 reads them out; the blind
+    rotation, and so the kernel launches, are those of one bootstrap.
+
+    ct: (..., lwe_n+1); multi_lut: (2, N) shared or (..., 2, N) per
+    ciphertext.  Returns (k, ..., lwe_n+1): output t is f_t of the common
+    phase.  The coarse mod switch multiplies its rounding noise by
+    2^theta: the JAX package measured 5/1024 wrong at theta = 2 with
+    messageModulus 8 at 128bit_fast (NOISE_MANY_r05.json), hence the
+    warning from theta = 2 on."""
+    p = ck.params
+    if p.poly_extend_factor != 1:
+        raise ValueError("many-LUT needs a plain (N) profile, not "
+                         f"{p.name!r}")
+    if not 1 <= k <= 1 << theta:
+        raise ValueError(f"k={k} functions need 1 <= k <= 2^theta "
+                         f"(theta={theta})")
+    if theta >= 2:
+        warnings.warn(
+            f"bootstrap_many with theta={theta}: the 2^theta-coarse mod "
+            "switch multiplies its rounding noise; at messageModulus 8 "
+            "and 128bit_fast theta = 2 measured 5/1024 wrong outputs",
+            stacklevel=2)
+    _check_served(ck)
+    lead = ct.shape[:-1]
+    ct2 = ct.reshape(-1, ct.shape[-1])
+    tv = multi_lut.reshape(-1, 2, p.n) if multi_lut.dim() > 2 else multi_lut
+    rotated = blind_rotate_t(p, ck.bands, ct2, tv, theta=theta, plain=plain)
+    lv1 = torch.stack([sample_extract(rotated, t) for t in range(k)])
+    out = identity_key_switch(p, ck.ksk, lv1) if key_switch else lv1
+    return out.reshape((k,) + lead + out.shape[-1:])
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """Secret and cloud (evaluation) keys: generation, conversion, ``.npz`` files
-(port of ``go_tfhe_tpu/keys.py:44-157, 223-302``).
+(port of ``go_tfhe_tpu/keys.py:44-157, 205-302``).
 
 The ``.npz`` format is the JAX package's (``keys.save_cloud_key`` /
 ``save_secret_key``): uint32 arrays ``testvec``, ``ksk``, ``bsk``, the
@@ -11,6 +11,7 @@ bands built from it (ops/cuda_t.pack_bsk_band_t).
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 import torch
@@ -38,7 +39,7 @@ class SecretKey:
 @dataclasses.dataclass
 class CloudKey:
     """Public evaluation key (cloudkey/cloudkey.go:16-21)."""
-    testvec: torch.Tensor   # (2, N) — constant-1/8 test vector
+    testvec: torch.Tensor   # (2, N), or (k, 2, N) extended — constant 1/8
     ksk: torch.Tensor       # (N, iks_t, base, lwe_n+1); [.., 0, :] == 0
     bsk: torch.Tensor       # (lwe_n, 2L, 2, N) — raw TRGSW form
     bands: torch.Tensor     # (lwe_n, 2, 2L, 2N) — K2 bands, limb drop folded
@@ -64,14 +65,12 @@ def gen_secret_key(gen: torch.Generator, p: TFHEParams, device,
 
 def gen_testvec(p: TFHEParams, device) -> torch.Tensor:
     """Constant 1/8 test vector: A = 0, B[i] = T(1/8)
-    (cloudkey/cloudkey.go:74-85)."""
-    if p.poly_extend_factor != 1:
-        raise NotImplementedError(
-            "extended test vectors are not ported yet (ROADMAP Queue 1 "
-            "item 8, extended LUTs)")
-    tv = torch.zeros((2, p.n), dtype=TORUS, device=device)
-    tv[1] = i32(int(f64_to_torus(0.125)))
-    return tv
+    (cloudkey/cloudkey.go:74-85).  For extended profiles (k > 1) the big
+    constant polynomial interleaves into k identical blocks, (k, 2, N)."""
+    k = p.poly_extend_factor
+    tv = torch.zeros((k, 2, p.n), dtype=TORUS, device=device)
+    tv[:, 1] = i32(int(f64_to_torus(0.125)))
+    return tv[0] if k == 1 else tv
 
 
 def gen_ksk(gen: torch.Generator, p: TFHEParams, sk: SecretKey
@@ -102,9 +101,27 @@ def _cloud_key(p: TFHEParams, testvec, ksk, bsk, block_binary) -> CloudKey:
                     block_binary=block_binary)
 
 
+def _warn_marginal_profile(p: TFHEParams) -> None:
+    """The floor-gadget extended profiles uint7/uint8 are measurably
+    unreliable (the JAX package measured 73.8% PBS accuracy at uint7;
+    uint8 cannot decode at all, EXT_r04.json): warn at keygen and point at
+    the *_centered variants."""
+    if (p.poly_extend_factor > 1 and not p.centered_decomposition
+            and p.message_modulus >= 128):
+        warnings.warn(
+            f"profile {p.name!r} uses the reference's floor gadget offset, "
+            f"whose bias random-walk exceeds the message-space tolerance at "
+            f"messageModulus={p.message_modulus} (measured: uint7 73.8% PBS "
+            f"accuracy, uint8 undecodable — EXT_r04.json).  Use "
+            f"get_params('{p.name}_centered') for the 100%-accurate "
+            f"centered-gadget variant (same crypto parameters).",
+            stacklevel=3)
+
+
 def gen_cloud_key(gen: torch.Generator, sk: SecretKey, p: TFHEParams
                   ) -> CloudKey:
     """cloudkey/cloudkey.go:24-31; on the secret key's device."""
+    _warn_marginal_profile(p)
     bsk = gen_bsk(gen, p, sk)
     ksk = gen_ksk(gen, p, sk)
     return _cloud_key(p, gen_testvec(p, sk.lv0.device), ksk, bsk,

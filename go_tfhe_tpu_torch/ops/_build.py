@@ -1,10 +1,12 @@
 """Build and load the Hopper kernels in ``go_tfhe_tpu_torch/csrc/``.
 
 Route: ``nvcc`` compiles the ``.cu`` sources (plain C entry points, no
-PyTorch headers) into one shared library for ``sm_90a``, loaded with
-``ctypes``.  The build happens at first use, into
+PyTorch headers) for ``sm_90a``, one ``nvcc`` process per source, all
+started together, and links the objects into one shared library, loaded
+with ``ctypes``.  The build happens at first use, into
 ``go_tfhe_tpu_torch/build/`` (listed in ``.gitignore``); the library's name
-carries a hash of the sources and flags, so an edited source rebuilds.
+carries a hash of the sources, headers and flags, so an edited source
+rebuilds.
 
 :func:`load_library` raises ``RuntimeError`` when there is no CUDA device
 or no ``nvcc``; no caller catches it, so a CUDA tensor never silently takes
@@ -16,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import shutil
 import subprocess
 import time
 
@@ -24,9 +27,12 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-SOURCES = ("rotdec_t.cu", "extprod_t.cu")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCES = ("rotdec_t.cu", "extprod_t.cu", "rotdec_ext_t.cu",
+           "extprod_ext_t.cu")
+HEADERS = ("extprod_tile.cuh",)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,6 +41,11 @@ _SIGNATURES = {
     "tfhe_rotdec_t": (_P, _P, _P, _I, _I, _I, _I, ctypes.c_uint32, _I, _P),
     # digits, band, acc, out, n, b, l2, nd, stream
     "tfhe_extprod_t": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # acc, amounts, out, n, k, b, l, bgbit, offset, nd, stream
+    "tfhe_rotdec_ext_t": (_P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_uint32,
+                          _I, _P),
+    # digits, band, acc, out, n, k, b, l2, nd, stream
+    "tfhe_extprod_ext_t": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 _lib = None           # the loaded library: built and loaded once per process
@@ -55,7 +66,7 @@ def _nvcc() -> str:
 def library_path() -> str:
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC_DIR, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"libtfhe_kernels_{h.hexdigest()[:16]}.so")
@@ -64,9 +75,9 @@ def library_path() -> str:
 def build() -> dict:
     """Compile the kernels unless the current sources are already built.
 
-    Returns {"path", "seconds", "log"}: the library, the compile's wall
+    Returns {"path", "seconds", "log"}: the library, the build's wall
     time (0 when nothing was compiled) and nvcc's output (ptxas register
-    and shared-memory report)."""
+    and shared-memory report of every kernel)."""
     if not torch.cuda.is_available():
         raise RuntimeError(
             "go_tfhe_tpu_torch: the CUDA kernels need a CUDA device; "
@@ -75,19 +86,33 @@ def build() -> dict:
     if os.path.exists(path):
         return {"path": path, "seconds": 0.0, "log": ""}
     nvcc = _nvcc()
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-           *[os.path.join(CSRC_DIR, s) for s in SOURCES]]
+    objdir = f"{path}.{os.getpid()}.obj"
+    os.makedirs(objdir, exist_ok=True)
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"go_tfhe_tpu_torch: nvcc failed "
-                           f"(exit {res.returncode}):\n{log}")
-    os.replace(tmp, path)          # atomic: concurrent builders agree
-    return {"path": path, "seconds": seconds, "log": log}
+    try:
+        objs = [os.path.join(objdir, f"{s}.o") for s in SOURCES]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, os.path.join(CSRC_DIR, s)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for s, obj in zip(SOURCES, objs)]
+        logs = [f"-- {s}\n{proc.communicate()[0]}"
+                for s, proc in zip(SOURCES, procs)]
+        log = "".join(logs)
+        failed = [s for s, proc in zip(SOURCES, procs) if proc.returncode]
+        if failed:
+            raise RuntimeError(f"go_tfhe_tpu_torch: nvcc failed on "
+                               f"{', '.join(failed)}:\n{log}")
+        tmp = os.path.join(objdir, os.path.basename(path))
+        res = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs],
+                             capture_output=True, text=True)
+        log += res.stdout + res.stderr
+        if res.returncode != 0:
+            raise RuntimeError(f"go_tfhe_tpu_torch: nvcc link failed "
+                               f"(exit {res.returncode}):\n{log}")
+        os.replace(tmp, path)      # atomic: concurrent builds agree
+    finally:
+        shutil.rmtree(objdir, ignore_errors=True)
+    return {"path": path, "seconds": time.perf_counter() - t0, "log": log}
 
 
 def load_library() -> ctypes.CDLL:

@@ -15,7 +15,8 @@ Each kernel has a wrapper and a plain PyTorch version beside it:
 
 A wrapper runs the plain version for CPU tensors and launches the CUDA
 kernel for CUDA tensors; it never falls back from one to the other.  Each
-launch adds one to ``launch_counts[<wrapper name>]``.
+launch adds one to ``launch_counts[<wrapper name>]``, which also counts the
+extended-LUT kernels K4/K5 (ops/cuda_ext_t.py).
 """
 
 from __future__ import annotations
@@ -34,7 +35,8 @@ from .rotate import monomial_mul
 # extprod_t.cu's output tile: N must be a multiple of its TN.
 _EXTPROD_TN = 64
 
-launch_counts = {"rotate_decompose_t": 0, "extprod_t": 0}
+launch_counts = {"rotate_decompose_t": 0, "extprod_t": 0,
+                 "rotate_decompose_ext_t": 0, "extprod_ext_t": 0}
 
 
 def reset_launch_counts() -> None:

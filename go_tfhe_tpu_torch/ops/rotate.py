@@ -1,5 +1,5 @@
-"""Negacyclic monomial multiplication  p(X) -> X^k * p(X)
-(port of ``go_tfhe_tpu/ops/rotate.py``).
+"""Negacyclic monomial multiplication  p(X) -> X^k * p(X), and its
+extended (interleaved k-block) form (port of ``go_tfhe_tpu/ops/rotate.py``).
 
 Wrapped coefficients take the reference's cheap negation ``^Torus(0) - a``
 (bitwise NOT), as in the JAX package, which keeps bit-exact parity.
@@ -29,6 +29,32 @@ def monomial_mul(poly: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     gathered = torch.gather(poly.expand(shape), -1, src.expand(shape))
     neg = (i < r) ^ flip
     return torch.where(neg, torus_not(gathered), gathered)
+
+
+def monomial_mul_blocks(acc: torch.Tensor, t: torch.Tensor, k: int
+                        ) -> torch.Tensor:
+    """Rotate an extended (degree k*N) negacyclic polynomial by X^t
+    (``go_tfhe_tpu/ops/rotate.py:48-74``).
+
+    The big polynomial is stored interleaved as k blocks,
+    big[j] == block[j % k][j // k]; rotation by X^t is a block permutation
+    plus per-block negacyclic Y = X^k rotations:
+
+        out_block[r'] = Y^q * block[r],  r = (r'-t) mod k,  q = (t+r-r')/k
+
+    acc: (..., k, C, N) int32 words.
+    t:   integer tensor broadcastable to acc.shape[:-3]; taken mod 2kN.
+    """
+    n = acc.shape[-1]
+    t = torch.remainder(t.to(torch.int64), 2 * k * n)
+    lead = torch.broadcast_shapes(acc.shape[:-3], t.shape)
+    acc = acc.expand(lead + acc.shape[-3:])
+    r_out = torch.arange(k, device=acc.device)
+    r_src = torch.remainder(r_out - t[..., None], k)              # (..., k)
+    q = (t[..., None] + r_src - r_out) // k                       # exact, >= 0
+    idx = r_src.expand(lead + (k,))[..., None, None].expand(acc.shape)
+    gathered = torch.gather(acc, -3, idx)
+    return monomial_mul(gathered, q[..., None])                   # over (C, N)
 
 
 def monomial_mul_log(poly: torch.Tensor, k: torch.Tensor) -> torch.Tensor:

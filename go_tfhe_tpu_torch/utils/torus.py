@@ -35,6 +35,11 @@ def f64_to_torus(d) -> np.uint32:
     return (np.trunc(t).astype(np.int64)).astype(np.uint32)
 
 
+def torus_to_f64(t) -> np.float64:
+    """utils/utils.go:17-19: float64(t) / 2^32, in [0, 1)."""
+    return np.asarray(t, dtype=np.uint64).astype(np.float64) / float(MOD32)
+
+
 # ---------------------------------------------------------------------------
 # int32 words.
 # ---------------------------------------------------------------------------
@@ -76,8 +81,9 @@ def torus_not(x: torch.Tensor) -> torch.Tensor:
 
 def from_numpy_u32(a, device) -> torch.Tensor:
     """numpy uint32 array -> int32 tensor with the same bits on ``device``."""
-    a = np.ascontiguousarray(np.asarray(a, dtype=np.uint32))
-    return torch.from_numpy(a.view(np.int32).copy()).to(device)
+    a = np.asarray(a, dtype=np.uint32)
+    words = np.ascontiguousarray(a).view(np.int32).reshape(a.shape)
+    return torch.from_numpy(words.copy()).to(device)
 
 
 def to_numpy_u32(x: torch.Tensor) -> np.ndarray:

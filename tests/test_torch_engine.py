@@ -181,16 +181,20 @@ def test_native_encrypt_noise_statistics():
 
 
 def test_unported_features_raise(shared):
+    """What the port does not serve yet raises on every device: block-binary
+    keys (ROADMAP Queue 1 item 9) and uint8's extended tables, which the
+    JAX package runs through the row-major kernels (Queue 2 K6/K8)."""
     _, _, tck, ca, _ = shared["test_fast"]
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         engine.bootstrap(dataclasses.replace(tck, block_binary=True), _t(ca))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        engine.bootstrap_many(tck, _t(ca), tck.testvec, k=2)
-    ext = params.get_params("test_ext2")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        engine.bootstrap_many(dataclasses.replace(tck, block_binary=True),
+                              _t(ca), tck.testvec, k=2)
     zeros = np.zeros((1,), np.uint32)
-    ck_ext = dataclasses.replace(tck, params=ext)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        engine.bootstrap(ck_ext, _t(zeros))
+    for name in ("uint8", "uint8_centered"):
+        ck_ext = dataclasses.replace(tck, params=params.get_params(name))
+        with pytest.raises(NotImplementedError, match="Queue 2 K6/K8"):
+            engine.bootstrap(ck_ext, _t(zeros))
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         keys.gen_secret_key(torch.Generator(), params.TEST_BLOCK, "cpu",
                             block_binary=True)

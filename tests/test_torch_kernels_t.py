@@ -152,7 +152,7 @@ def test_cpu_wrappers_run_plain_and_count_nothing():
     out = cuda_t.extprod_t(d, band, acc_t)
     np.testing.assert_array_equal(
         out.numpy(), cuda_t.extprod_t_ref(d, band, acc_t).numpy())
-    assert cuda_t.launch_counts == {"rotate_decompose_t": 0, "extprod_t": 0}
+    assert cuda_t.launch_counts == dict.fromkeys(cuda_t.launch_counts, 0)
 
 
 def test_non_cpu_tensor_never_takes_the_plain_path():
