@@ -16,13 +16,21 @@ entry points a user calls:
   ``lut.bootstrap_func`` (kernels K4 + K5): ``uint6_centered`` (lwe_n
   1071, N 2048, k 2) at batch 2048 with keygen on the card, a first and a
   steady batch, margins, launches and 8 ciphertexts against the plain
-  path; ``uint7_centered`` (lwe_n 1160, k 4) at batch 256.
+  path; ``uint7_centered`` (lwe_n 1160, k 4) at batch 256;
+* ``uint8_centered`` (lwe_n 1160, k 9: 256 messages) at batch 256 through
+  ``lut.bootstrap_func``, on the row-major extended rotation (kernels K6 +
+  K8), with the same checks;
+* the block blind rotation: a block-binary key made on the card at
+  ``128bit_fast`` (block_size 3), ``gates.NAND`` on 4096 bit pairs with
+  ``engine.PREFER_BLOCK_ROTATION`` set (kernels K7 + K8, 234 steps), and
+  the same keys with the flag off (K1 + K2, 700 steps).
 
-Before that it builds the four Hopper kernels from
+Before that it builds the seven Hopper kernels from
 ``go_tfhe_tpu_torch/csrc/`` and holds each against its plain PyTorch
-version (tolerance 0) at the paths' shapes, a wide-digit shape, ragged
-batches and the edge rotation amounts.  Each path runs with the launch
-counters set to 0 just before it and read just after.
+version (tolerance 0) at the paths' shapes, wide-digit shapes, ragged
+batches and the edge rotation amounts, and times each (CUDA events).
+Each path runs with the launch counters set to 0 just before it and read
+just after.
 
 Any failed check raises, so the script exits non-zero and prints no
 result.  It needs a CUDA device: there is no CPU run.  On success its last
@@ -33,6 +41,7 @@ two lines are a JSON object describing each kernel and then
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -42,7 +51,9 @@ import numpy as np
 import torch
 
 from go_tfhe_tpu_torch import cipher, engine, gates, keys, lut, params
-from go_tfhe_tpu_torch.ops import _build, cuda_ext_t, cuda_t
+from go_tfhe_tpu_torch.ops import (_build, cuda_ext, cuda_ext_t,
+                                   cuda_extprod, cuda_rotate, cuda_t)
+from go_tfhe_tpu_torch.ops.blindrotate import block_bands
 
 BATCH = 4096
 PLAIN_CHECK = 32
@@ -50,9 +61,12 @@ MARGIN = 2 ** 29          # the boolean decision margin (+-1/8 of the torus)
 MIN_SIGMAS = 8.0          # bench.py's phase-margin floor
 UINT6_BATCH = 2048
 UINT7_BATCH = 256
+UINT8_BATCH = 256
 PBS_PLAIN_CHECK = 8
 K1K2 = ("rotate_decompose_t", "extprod_t")
 K4K5 = ("rotate_decompose_ext_t", "extprod_ext_t")
+K6K8 = ("rotate_decompose_ext", "extprod")
+K7K8 = ("rotate_decompose", "extprod")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -219,12 +233,124 @@ def ext_kernels_against_plain(gen, dev, errs, times):
               f"per call ({u6.name}, B={UINT6_BATCH})", flush=True)
 
 
-def pbs_phase(gen, dev, p, batch: int, f, steady: bool) -> dict:
+def rowmajor_kernels_against_plain(gen, dev, errs, times):
+    """K6, K7 and K8 against their plain versions, exactly (tolerance 0):
+    K6 at uint8_centered B 256 and 255 (amounts 0, kN, 2kN - 1, 2kN among
+    them); K7 at 128bit_fast with bs 3 and 1, B 4096 and 4095 (amounts 0,
+    N, 2N among them) and an nd = 3 shape; K8 on K7's digits (12 rows of a
+    block step, 4 of a tail step) and on K6's (uint8: B' = 9B, nd 3, 2
+    rows).  Adds to ``errs`` and ``times`` (K6 at uint8 B 256, K7 and K8
+    at the block step, B 4096) and returns the other shapes' times."""
+    wide = params.TFHEParams(
+        name="block_nd3", lwe_n=6, lwe_alpha=1.0 / (1 << 26), n=256,
+        lv1_alpha=1.0 / (1 << 30), nbit=8, bgbit=18, l=1, basebit=4,
+        iks_t=6, block_size=3, message_modulus=8)
+    u8, fast = params.UINT8_CENTERED, params.P128_FAST
+    extra = {}
+
+    def rand_words(shape):
+        return torch.randint(-2 ** 31, 2 ** 31, shape, dtype=torch.int32,
+                             device=dev, generator=gen)
+
+    def note(name, e):
+        errs[name] = max(errs.get(name, 0), e)
+
+    for b in (UINT8_BATCH, UINT8_BATCH - 1):
+        k, n, nd = u8.poly_extend_factor, u8.n, u8.digit_limbs
+        big = 2 * k * n
+        acc = rand_words((2, b, k * n))
+        t = torch.randint(0, big + 1, (b,), dtype=torch.int32, device=dev,
+                          generator=gen)
+        t[:4] = torch.tensor([big, 0, k * n, big - 1], dtype=torch.int32,
+                             device=dev)
+        band = cuda_t.pack_bsk_band_t(rand_words((1, 2 * u8.l, 2, n)))[0]
+        d_k = cuda_ext.rotate_decompose_ext(u8, acc, t)
+        d_p = cuda_ext.rotate_decompose_ext_ref(u8, acc, t)
+        digits = d_p.view(b * k, -1)
+        acc_f = acc.view(2, b * k, n)
+        o_k = cuda_extprod.extprod(digits, band, acc_f, nd)
+        o_p = cuda_extprod.extprod_ref(digits, band, acc_f, nd)
+        torch.cuda.synchronize()
+        e6, e8 = max_abs_err(d_k, d_p), max_abs_err(o_k, o_p)
+        print(f"   {u8.name} B={b:5d} (B'={b * k})  K6 max|err| {e6}  "
+              f"K8 max|err| {e8}", flush=True)
+        check(e6 == 0 and e8 == 0,
+              f"kernel disagrees with its plain version at {u8.name} B={b}")
+        note("rotate_decompose_ext", e6)
+        note("extprod", e8)
+        if b == UINT8_BATCH:
+            times["rotate_decompose_ext"] = (
+                cuda_ms(lambda: cuda_ext.rotate_decompose_ext(u8, acc, t),
+                        20),
+                cuda_ms(lambda: cuda_ext.rotate_decompose_ext_ref(u8, acc, t),
+                        3))
+            extra["extprod uint8 B'=2304"] = (
+                cuda_ms(lambda: cuda_extprod.extprod(digits, band, acc_f, nd),
+                        10),
+                cuda_ms(lambda: cuda_extprod.extprod_ref(digits, band, acc_f,
+                                                         nd), 3))
+
+    for p, bs, b in ((fast, 3, BATCH), (fast, 3, BATCH - 1), (fast, 1, BATCH),
+                     (fast, 1, BATCH - 1), (wide, 3, 256)):
+        n, nd = p.n, p.digit_limbs
+        lo = p.kernel_limb_drop if nd == 1 else 0
+        acc = rand_words((2, b, n))
+        amounts = torch.randint(0, 2 * n + 1, (bs, b), dtype=torch.int32,
+                                device=dev, generator=gen)
+        amounts[:, :3] = torch.tensor([0, n, 2 * n], dtype=torch.int32,
+                                      device=dev)
+        bsk = rand_words((bs, 2 * p.l, 2, n))
+        if p.key_grid_bits:
+            bsk &= ~((1 << p.key_grid_bits) - 1)
+        bands = cuda_t.pack_bsk_band_t(bsk, lo)
+        band = (block_bands(dataclasses.replace(p, lwe_n=bs), bands)[0]
+                if bs > 1 else bands[0])
+        d_k = cuda_rotate.rotate_decompose(p, acc, amounts)
+        d_p = cuda_rotate.rotate_decompose_ref(p, acc, amounts)
+        o_k = cuda_extprod.extprod(d_p, band, acc, nd)
+        o_p = cuda_extprod.extprod_ref(d_p, band, acc, nd)
+        torch.cuda.synchronize()
+        e7, e8 = max_abs_err(d_k, d_p), max_abs_err(o_k, o_p)
+        print(f"   {p.name:12s} bs={bs} B={b:5d} ({band.shape[1]:2d} rows)  "
+              f"K7 max|err| {e7}  K8 max|err| {e8}", flush=True)
+        check(e7 == 0 and e8 == 0, f"kernel disagrees with its plain "
+              f"version at {p.name} bs={bs} B={b}")
+        note("rotate_decompose", e7)
+        note("extprod", e8)
+        if p is fast and b == BATCH:
+            kt = cuda_ms(lambda: cuda_rotate.rotate_decompose(p, acc, amounts),
+                         20)
+            pt = cuda_ms(lambda: cuda_rotate.rotate_decompose_ref(
+                p, acc, amounts), 3)
+            ke = cuda_ms(lambda: cuda_extprod.extprod(d_p, band, acc, nd), 10)
+            pe = cuda_ms(lambda: cuda_extprod.extprod_ref(d_p, band, acc, nd),
+                         3)
+            if bs == 3:
+                times["rotate_decompose"], times["extprod"] = (kt, pt), (ke, pe)
+            else:
+                extra["rotate_decompose bs=1 B=4096"] = (kt, pt)
+                extra["extprod 4 rows B=4096"] = (ke, pe)
+    shown = {"rotate_decompose_ext": f"{u8.name}, B={UINT8_BATCH}",
+             "rotate_decompose": f"{fast.name}, bs=3, B={BATCH}",
+             "extprod": f"{fast.name}, 12 rows, B={BATCH}"}
+    for name, where in shown.items():
+        ms, plain_ms = times[name]
+        print(f"   {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per "
+              f"call ({where})", flush=True)
+    for name, (ms, plain_ms) in extra.items():
+        print(f"   {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per "
+              f"call", flush=True)
+    return {name: {"ms": ms, "plain_ms": plain_ms}
+            for name, (ms, plain_ms) in extra.items()}
+
+
+def pbs_phase(gen, dev, p, batch: int, f, steady: bool,
+              kernels: tuple = K4K5) -> dict:
     """Keygen on the card, then ``lut.bootstrap_func`` with f on a batch of
     messages cycling over the message space: decryption, phase margin
-    against the half-segment 2^31/m/2, launch counts (K4 + K5, lwe_n per
-    bootstrap), batch times, peak memory, and PBS_PLAIN_CHECK ciphertexts
-    against the plain path.  Returns the figures."""
+    against the half-segment 2^31/m/2, launch counts (``kernels``, lwe_n
+    per bootstrap), batch times, peak memory, and PBS_PLAIN_CHECK
+    ciphertexts against the plain path.  Returns the figures."""
     m = p.message_modulus
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -255,7 +381,7 @@ def pbs_phase(gen, dev, p, batch: int, f, steady: bool) -> dict:
     peak = torch.cuda.max_memory_allocated()
     print(f"   launches over {calls} bootstrap call(s): {launches}; peak "
           f"memory {peak} B", flush=True)
-    check_launches(launches, p.lwe_n, calls, K4K5)
+    check_launches(launches, p.lwe_n, calls, kernels)
 
     check(out.shape == (batch, p.lwe_n + 1) and out.dtype == torch.int32,
           f"unexpected output {tuple(out.shape)} {out.dtype}")
@@ -286,6 +412,81 @@ def pbs_phase(gen, dev, p, batch: int, f, steady: bool) -> dict:
             "first_batch_s": first_s, "steady_batch_s": steady_s,
             "pbs_per_s": rate, "margin_sigmas": sig,
             "peak_bytes": peak, "launches": launches}
+
+
+def block_nand_phase(gen, dev, p, bits_a, bits_b) -> dict:
+    """A block-binary key made on the card, then NAND on the bit pairs:
+    with ``engine.PREFER_BLOCK_ROTATION`` set (K7 + K8, ceil(lwe_n / bs)
+    steps), a first and a steady batch, truth table, margin, launches and
+    PLAIN_CHECK gates against the plain path; then with the flag off on
+    the same keys (K1 + K2, lwe_n steps), truth table, margin and
+    launches.  Returns the figures."""
+    batch = len(bits_a)
+    bs = p.block_size
+    steps = -(-p.lwe_n // bs)
+    t0 = time.perf_counter()
+    sk = keys.gen_secret_key(gen, p, dev, block_binary=True)
+    ck = keys.gen_cloud_key(gen, sk, p)
+    keygen_s = done(t0, "block-binary keygen ")
+    full = p.lwe_n // bs
+    check(ck.block_binary and sk.block_binary, "the key is not block-binary")
+    check(sk.lv0[:full * bs].view(full, bs).sum(1).max().item() <= 1
+          and sk.lv0[full * bs:].sum().item() <= 1,
+          "a key block has Hamming weight > 1")
+    ct_a = cipher.lwe_encrypt_bool(gen, torch.from_numpy(bits_a),
+                                   p.lwe_alpha, sk.lv0)
+    ct_b = cipher.lwe_encrypt_bool(gen, torch.from_numpy(bits_b),
+                                   p.lwe_alpha, sk.lv0)
+    want = ~(bits_a & bits_b)
+    ideal = np.where(want, MARGIN, -MARGIN)
+    out = {"keygen_s": keygen_s}
+    for prefer, kernels, per_call in ((True, K7K8, steps),
+                                      (False, K1K2, p.lwe_n)):
+        engine.PREFER_BLOCK_ROTATION = prefer
+        route = engine._route(ck)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_t.reset_launch_counts()
+        t1 = time.perf_counter()
+        res = gates.NAND(ck, ct_a, ct_b)
+        first_s = done(t1, f"{route}: first batch ")
+        t1 = time.perf_counter()
+        res2 = gates.NAND(ck, ct_a, ct_b)
+        steady_s = done(t1, f"{route}: steady batch ")
+        launches = dict(cuda_t.launch_counts)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"   launches over 2 bootstrap calls: {launches}; peak memory "
+              f"{peak} B", flush=True)
+        check_launches(launches, per_call, 2, kernels)
+        check(torch.equal(res, res2), "two runs of one batch disagree")
+        check(res.shape == (batch, p.lwe_n + 1), "unexpected output shape")
+        dec = cipher.lwe_decrypt_bool(res, sk.lv0).cpu().numpy()
+        wrong = int((dec != want).sum())
+        check(wrong == 0, f"{wrong}/{batch} block-key NAND outputs decrypt "
+              f"wrong ({route})")
+        sig, std, worst = margin_sigmas(
+            cipher.lwe_phase(res, sk.lv0).cpu().numpy(), ideal, MARGIN)
+        print(f"   {batch}/{batch} right; phase noise std 2^{np.log2(std):.2f}"
+              f", max |dev| 2^{np.log2(worst + 1):.2f}, margin {sig:.1f} "
+              f"sigma; gates/s steady {batch / steady_s:.1f}", flush=True)
+        check(sig >= MIN_SIGMAS,
+              f"noise margin {sig:.1f} sigma below {MIN_SIGMAS} ({route})")
+        fig = {"first_batch_s": first_s, "steady_batch_s": steady_s,
+               "gates_per_s": batch / steady_s, "margin_sigmas": sig,
+               "peak_bytes": peak, "launches": launches}
+        if prefer:
+            t1 = time.perf_counter()
+            prepared = engine.prepare_nand(ct_a[:PLAIN_CHECK],
+                                           ct_b[:PLAIN_CHECK])
+            plain = engine.bootstrap(ck, prepared, plain=True)
+            check(torch.equal(plain, res[:PLAIN_CHECK]),
+                  "block NAND: the kernel path disagrees with the plain path")
+            check(cuda_t.launch_counts == launches,
+                  "the plain path launched a kernel")
+            done(t1, f"{PLAIN_CHECK} gates bit-equal through the plain path; ")
+        out["block" if prefer else "per_bit"] = fig
+    engine.PREFER_BLOCK_ROTATION = False
+    return out
 
 
 def main() -> int:
@@ -326,6 +527,7 @@ def main() -> int:
     t0 = phase("3. kernels against their plain versions")
     errs, times = kernels_against_plain(gen, dev)
     ext_kernels_against_plain(gen, dev, errs, times)
+    shape_times = rowmajor_kernels_against_plain(gen, dev, errs, times)
     done(t0)
 
     p = params.P128_FAST
@@ -451,11 +653,34 @@ def main() -> int:
                    lambda x: (5 * x + 3) % m7, steady=False)
     done(t0)
 
+    m8 = params.UINT8_CENTERED.message_modulus
+    t0 = phase(f"10. {params.UINT8_CENTERED.name} PBS, batch {UINT8_BATCH}, "
+               "through lut.bootstrap_func")
+    torch.cuda.empty_cache()
+    u8 = pbs_phase(gen, dev, params.UINT8_CENTERED, UINT8_BATCH,
+                   lambda x: (7 * x + 5) % m8, steady=True, kernels=K6K8)
+    check(u8["margin_sigmas"] >= MIN_SIGMAS,
+          f"uint8 noise margin {u8['margin_sigmas']:.1f} sigma below "
+          f"{MIN_SIGMAS}")
+    done(t0)
+
+    t0 = phase(f"11. block NAND batch of {BATCH} at {p.name}, block-binary "
+               "key, PREFER_BLOCK_ROTATION on and off")
+    torch.cuda.empty_cache()
+    blk = block_nand_phase(gen, dev, p, bits_a, bits_b)
+    done(t0)
+
     path_launches = {"rotate_decompose_t": launches["rotate_decompose_t"],
                      "extprod_t": launches["extprod_t"],
                      "rotate_decompose_ext_t":
                          u6["launches"]["rotate_decompose_ext_t"],
-                     "extprod_ext_t": u6["launches"]["extprod_ext_t"]}
+                     "extprod_ext_t": u6["launches"]["extprod_ext_t"],
+                     "rotate_decompose_ext":
+                         u8["launches"]["rotate_decompose_ext"],
+                     "rotate_decompose":
+                         blk["block"]["launches"]["rotate_decompose"],
+                     "extprod": u8["launches"]["extprod"]
+                     + blk["block"]["launches"]["extprod"]}
     sources = {
         "rotate_decompose_t": ("go_tfhe_tpu_torch/csrc/rotdec_t.cu",
                                "go_tfhe_tpu/ops/pallas_t.py:122"),
@@ -464,7 +689,13 @@ def main() -> int:
         "rotate_decompose_ext_t": ("go_tfhe_tpu_torch/csrc/rotdec_ext_t.cu",
                                    "go_tfhe_tpu/ops/pallas_t.py:348"),
         "extprod_ext_t": ("go_tfhe_tpu_torch/csrc/extprod_ext_t.cu",
-                          "go_tfhe_tpu/ops/pallas_t.py:433")}
+                          "go_tfhe_tpu/ops/pallas_t.py:433"),
+        "rotate_decompose_ext": ("go_tfhe_tpu_torch/csrc/rotdec_ext.cu",
+                                 "go_tfhe_tpu/ops/pallas_ext.py:128"),
+        "rotate_decompose": ("go_tfhe_tpu_torch/csrc/rotdec.cu",
+                             "go_tfhe_tpu/ops/pallas_rotate.py:99"),
+        "extprod": ("go_tfhe_tpu_torch/csrc/extprod.cu",
+                    "go_tfhe_tpu/ops/pallas_extprod.py:180")}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": path_launches[name], "max_abs_err": errs[name],
@@ -476,9 +707,18 @@ def main() -> int:
         "and_or_batch_s": and_or_s, "and_or_margin_sigmas": and_or_sigmas,
         "uint6_centered": {k: v for k, v in u6.items() if k != "launches"},
         "uint7_centered": {k: v for k, v in u7.items() if k != "launches"},
+        "uint8_centered": {k: v for k, v in u8.items() if k != "launches"},
+        "block_nand": {"keygen_s": blk["keygen_s"], **{
+            mode: {k: v for k, v in blk[mode].items() if k != "launches"}
+            for mode in ("block", "per_bit")}},
+        "kernel_shape_times": shape_times,
         "path_launches": {"nand": launches, "and_or": and_or_launches,
                           "uint6_centered": u6["launches"],
-                          "uint7_centered": u7["launches"]}}))
+                          "uint7_centered": u7["launches"],
+                          "uint8_centered": u8["launches"],
+                          "block_nand": blk["block"]["launches"],
+                          "block_key_per_bit_nand":
+                              blk["per_bit"]["launches"]}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,12 +6,14 @@ with the uint32 bits).  It imports ``torch`` and numpy, never ``jax``.  The
 blind-rotation step runs hand-written Hopper kernels (``csrc/``) on CUDA
 tensors and their plain PyTorch versions on CPU tensors.
 
-Served so far, with uniform binary keys: keygen, encryption, the batched
-gate bootstrap, the ten two-input gates and ``AND_OR``, programmable
-bootstrapping (``lut``: shared and per-ciphertext tables) and the many-LUT
-bootstrap on the plain profiles, and extended look-up tables at uint6 and
-uint7 (and their centered variants).  The card runs ``128bit_fast``,
-``uint6_centered`` and ``uint7_centered``.
+Served so far: keygen (uniform or block-binary keys), encryption, the
+batched gate bootstrap, the ten two-input gates and ``AND_OR``,
+programmable bootstrapping (``lut``: shared and per-ciphertext tables) and
+the many-LUT bootstrap on the plain profiles, extended look-up tables at
+uint6, uint7 and uint8 (and their centered variants), and the block blind
+rotation for block-binary keys (``engine.PREFER_BLOCK_ROTATION``).  The
+card runs ``128bit_fast``, ``uint6_centered``, ``uint7_centered`` and
+``uint8_centered``.
 """
 
 from . import cipher, engine, gates, keys, lut, ops, utils

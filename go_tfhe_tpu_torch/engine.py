@@ -1,4 +1,4 @@
-"""The bootstrap engine (port of ``go_tfhe_tpu/engine.py:106-132,
+"""The bootstrap engine (port of ``go_tfhe_tpu/engine.py:43-50, 106-132,
 168-244, 269-321, 337-389``).
 
 One code path serves both devices: blind rotation (ops/blindrotate.py)
@@ -7,15 +7,25 @@ One code path serves both devices: blind rotation (ops/blindrotate.py)
 their plain versions on CPU tensors and the Hopper kernels on CUDA tensors.
 The kernels mask a ragged batch themselves, so no batch padding is needed.
 
-Routing follows the JAX dispatch (``_tpu_core_choice``), so each profile
-reaches the counterpart of the TPU kernel the JAX package reaches:
+Routing (:func:`_route`) follows the JAX package's TPU dispatch
+(``_tpu_core_choice``), so each (profile, key) reaches the counterpart of
+the TPU kernel the JAX package reaches there:
 
-* plain profiles (poly_extend_factor == 1): ``blind_rotate_t``, K1 + K2;
 * extended profiles that pass ``ext_t_fits`` (uint6, uint7 and their
   centered variants, the toy ``test_ext2/3``): ``blind_rotate_extended_t``,
   K4 + K5, as ``_bootstrap_core_ext_t``;
-* uint8 (k = 9) and block-binary keys raise ``NotImplementedError`` on
-  every device, naming the ROADMAP items that port their kernels.
+* extended profiles that do not (uint8 and uint8_centered, k = 9):
+  ``blind_rotate_extended_rm``, K6 + K8, as ``_bootstrap_core_ext_tpu``;
+* block-binary keys on a profile with block_size > 1 and single-limb
+  digits, when :data:`PREFER_BLOCK_ROTATION` is set: ``blind_rotate_block``,
+  K7 + K8, as ``_bootstrap_core_block_tpu``;
+* everything else (the default for block-binary keys too):
+  ``blind_rotate_t``, K1 + K2, as ``_bootstrap_core_t``.
+
+``bootstrap_many`` runs ``blind_rotate_t`` for every key, as the JAX
+package does.  (On its CPU backend the JAX package always runs block-binary
+keys through the portable block rotation; the port follows the TPU's
+choice on every device.)
 """
 
 from __future__ import annotations
@@ -25,7 +35,8 @@ import warnings
 import torch
 
 from .keys import CloudKey
-from .ops.blindrotate import blind_rotate_extended_t, blind_rotate_t
+from .ops.blindrotate import (blind_rotate_block, blind_rotate_extended_rm,
+                              blind_rotate_extended_t, blind_rotate_t)
 from .ops.cuda_ext_t import ext_t_fits
 from .ops.keyswitch import identity_key_switch
 from .ops.sample_extract import sample_extract
@@ -37,23 +48,38 @@ _T_NEG_EIGHTH = i32(int(f64_to_torus(-0.125)))
 _T_QUARTER = i32(int(f64_to_torus(0.25)))
 
 
-def _check_served(ck: CloudKey) -> None:
+# Route block-binary keys through the block blind rotation (K7 + K8)
+# instead of the per-bit path (K1 + K2).  Off by default, as in the JAX
+# package (go_tfhe_tpu/engine.py:43-50), whose reason is a TPU measurement:
+# there the per-bit transposed path beat the block kernel (8,205 vs 7,886
+# gates/s at 128bit_fast), the block kernel's launch-count advantage no
+# longer paying for its costlier rotation.  On an H100 at 700 W the
+# per-bit path is ahead too (2,311 vs 2,223 gates/s on the same
+# block-binary keys, batch 4096; PERF.md).  The block path stays served
+# and tested; set this True to take it.
+PREFER_BLOCK_ROTATION = False
+
+
+_ROTATIONS = {f.__name__: f for f in (blind_rotate_t, blind_rotate_block,
+                                      blind_rotate_extended_t,
+                                      blind_rotate_extended_rm)}
+
+
+def _route(ck: CloudKey) -> str:
+    """The blind rotation that ``bootstrap`` runs for this key: the name of
+    a function of ops/blindrotate.py (see the module docstring)."""
     p = ck.params
-    if p.poly_extend_factor > 1 and not ext_t_fits(p):
-        raise NotImplementedError(
-            f"profile {p.name!r}: extended look-up tables with "
-            f"poly_extend_factor {p.poly_extend_factor} run the row-major "
-            "extended kernels, which are not ported yet (ROADMAP Queue 2 "
-            "K6/K8)")
-    if ck.block_binary:
-        raise NotImplementedError(
-            "block-binary keys and block blind rotation are not ported yet "
-            "(ROADMAP Queue 1 item 9)")
+    if p.poly_extend_factor > 1:
+        return ("blind_rotate_extended_t" if ext_t_fits(p)
+                else "blind_rotate_extended_rm")
+    if (ck.block_binary and p.block_size > 1 and p.digit_limbs == 1
+            and PREFER_BLOCK_ROTATION):
+        return "blind_rotate_block"
+    return "blind_rotate_t"
 
 
 def _bootstrap(ck: CloudKey, ct: torch.Tensor, testvec, key_switch: bool,
                plain: bool) -> torch.Tensor:
-    _check_served(ck)
     p = ck.params
     k = p.poly_extend_factor
     tv = ck.testvec if testvec is None else testvec
@@ -64,11 +90,9 @@ def _bootstrap(ck: CloudKey, ct: torch.Tensor, testvec, key_switch: bool,
     ct2 = ct.reshape(-1, ct.shape[-1])
     if tv.dim() > len(tv_shape):
         tv = tv.reshape((-1,) + tv_shape)
-    if k == 1:
-        rotated = blind_rotate_t(p, ck.bands, ct2, tv, plain=plain)
-    else:                                   # big-poly coefficient 0
-        rotated = blind_rotate_extended_t(p, ck.bands, ct2, tv,
-                                          plain=plain)[:, 0]
+    rotated = _ROTATIONS[_route(ck)](p, ck.bands, ct2, tv, plain=plain)
+    if k > 1:                               # big-poly coefficient 0
+        rotated = rotated[:, 0]
     lv1 = sample_extract(rotated, 0)
     out = identity_key_switch(p, ck.ksk, lv1) if key_switch else lv1
     return out.reshape(lead + out.shape[-1:])
@@ -121,7 +145,6 @@ def bootstrap_many(ck: CloudKey, ct: torch.Tensor, multi_lut: torch.Tensor,
             "switch multiplies its rounding noise; at messageModulus 8 "
             "and 128bit_fast theta = 2 measured 5/1024 wrong outputs",
             stacklevel=2)
-    _check_served(ck)
     lead = ct.shape[:-1]
     ct2 = ct.reshape(-1, ct.shape[-1])
     tv = multi_lut.reshape(-1, 2, p.n) if multi_lut.dim() > 2 else multi_lut

@@ -5,7 +5,9 @@ The ``.npz`` format is the JAX package's (``keys.save_cloud_key`` /
 ``save_secret_key``): uint32 arrays ``testvec``, ``ksk``, ``bsk``, the
 profile name and the ``block_binary`` flag; files written by either
 package load in the other.  The CloudKey keeps the raw BSK and the K2
-bands built from it (ops/cuda_t.pack_bsk_band_t).
+bands built from it (ops/cuda_t.pack_bsk_band_t), the one band layout that
+every blind rotation reads: the block rotation views the bands of each
+block as one block step's rows (ops/blindrotate.block_bands).
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch
 from . import cipher
 from .ops.cuda_t import pack_bsk_band_t
 from .params import TFHEParams, get_params
-from .utils.rng import binary_key
+from .utils.rng import binary_key, block_binary_key
 from .utils.torus import TORUS, f64_to_torus, from_numpy_u32, i32
 from .utils.torus import to_numpy_u32
 
@@ -42,7 +44,8 @@ class CloudKey:
     testvec: torch.Tensor   # (2, N), or (k, 2, N) extended — constant 1/8
     ksk: torch.Tensor       # (N, iks_t, base, lwe_n+1); [.., 0, :] == 0
     bsk: torch.Tensor       # (lwe_n, 2L, 2, N) — raw TRGSW form
-    bands: torch.Tensor     # (lwe_n, 2, 2L, 2N) — K2 bands, limb drop folded
+    bands: torch.Tensor     # (lwe_n, 2, 2L, 2N) — K2 bands, limb drop folded;
+    #                         read by every blind rotation (K2, K5, K8)
     params: TFHEParams
     block_binary: bool = False
 
@@ -54,13 +57,30 @@ class CloudKey:
 
 def gen_secret_key(gen: torch.Generator, p: TFHEParams, device,
                    block_binary: bool = False) -> SecretKey:
-    """Uniform binary keys for both levels (key/key.go:16-45)."""
-    if block_binary:
-        raise NotImplementedError(
-            "block-binary secret keys are not ported yet (ROADMAP Queue 1 "
-            "item 9, block blind rotation)")
-    return SecretKey(lv0=binary_key(gen, p.lwe_n, device),
-                     lv1=binary_key(gen, p.n, device))
+    """key/key.go:16-45 (``go_tfhe_tpu/keys.py:89-117``).
+
+    The default samples both levels uniform binary, the distribution the
+    reference uses.  ``block_binary=True`` samples a block-binary lv0 key
+    (Hamming weight <= 1 per block of ``p.block_size`` bits), which the
+    block blind rotation needs (engine.PREFER_BLOCK_ROTATION); the lv1
+    ring key stays uniform binary.
+
+    SECURITY CAVEAT for ``block_binary=True``: a block-binary key has
+    log2(block_size+1)/block_size entropy bits per key bit (< 1), so a
+    profile's nominal security level does not carry over.  The JAX
+    package's estimate (primal uSVP + guess-and-reduce, SECURITY.md): at
+    the 128-bit profile the cost drops from 107.2 classical core-SVP bits
+    (uniform) to 105.1 at block_size 3 (the shipped BlockSize) and 97.6 at
+    block_size 8.  The reference never samples such keys.
+    """
+    if block_binary and p.block_size <= 1:
+        raise ValueError(
+            f"profile {p.name!r} has block_size {p.block_size}; "
+            "block-binary keys need block_size > 1")
+    lv0 = (block_binary_key(gen, p.lwe_n, p.block_size, device)
+           if block_binary else binary_key(gen, p.lwe_n, device))
+    return SecretKey(lv0=lv0, lv1=binary_key(gen, p.n, device),
+                     block_binary=block_binary)
 
 
 def gen_testvec(p: TFHEParams, device) -> torch.Tensor:

@@ -1,8 +1,11 @@
 """Compute kernels: exact negacyclic arithmetic, decomposition, rotation,
-the blind-rotation step kernels (``cuda_t``), blind rotation, key switching
-and sample extraction."""
+the blind-rotation step kernels (``cuda_t``, ``cuda_ext_t``, ``cuda_ext``,
+``cuda_rotate``, ``cuda_extprod``), blind rotation, key switching and
+sample extraction."""
 
-from .blindrotate import blind_rotate_t, mod_switch_2n
+from .blindrotate import (blind_rotate_block, blind_rotate_extended_rm,
+                          blind_rotate_extended_t, blind_rotate_t,
+                          mod_switch_2n)
 from .cuda_t import (extprod_t, extprod_t_ref, launch_counts,
                      pack_bsk_band_t, reset_launch_counts, rotate_decompose_t,
                      rotate_decompose_t_ref)

@@ -28,7 +28,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 SOURCES = ("rotdec_t.cu", "extprod_t.cu", "rotdec_ext_t.cu",
-           "extprod_ext_t.cu")
+           "extprod_ext_t.cu", "rotdec_ext.cu", "rotdec.cu", "extprod.cu")
 HEADERS = ("extprod_tile.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -46,6 +46,13 @@ _SIGNATURES = {
                           _I, _P),
     # digits, band, acc, out, n, k, b, l2, nd, stream
     "tfhe_extprod_ext_t": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # acc, amounts, out, n, k, b, l, bgbit, offset, nd, stream
+    "tfhe_rotdec_ext": (_P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_uint32, _I,
+                        _P),
+    # acc, amounts, out, n, b, bs, l, bgbit, offset, nd, stream
+    "tfhe_rotdec": (_P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_uint32, _I, _P),
+    # digits, band, acc, out, n, b', rows, nd, stream
+    "tfhe_extprod": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _lib = None           # the loaded library: built and loaded once per process

@@ -1,5 +1,5 @@
 """Blind rotation — the bootstrap hot loop, batched over ciphertexts
-(port of ``go_tfhe_tpu/ops/blindrotate.py:50-79, 221-255, 410-448``).
+(port of ``go_tfhe_tpu/ops/blindrotate.py:50-79, 162-255, 410-531``).
 
 Per input LWE coefficient the accumulator is rotated by the mod-switched
 coefficient and CMUXed with the corresponding bootstrapping-key row; the
@@ -12,8 +12,17 @@ Mod switch (evaluator/evaluator.go:116,122):
     a~ =      ((a + 2^(31-NBIT-1)) >> (32-NBIT-1))
 
 Extended look-up tables (poly_extend_factor k > 1) rotate an interleaved
-big accumulator of k blocks over [0, 2kN] (:func:`blind_rotate_extended_t`,
-kernels in ops/cuda_ext_t.py).
+big accumulator of k blocks over [0, 2kN]: :func:`blind_rotate_extended_t`
+(transposed, K4 + K5, ops/cuda_ext_t.py) for the profiles that pass
+``ext_t_fits``, :func:`blind_rotate_extended_rm` (row-major, K6 + K8,
+ops/cuda_ext.py and ops/cuda_extprod.py) for uint8.
+
+Block-binary keys (Hamming weight <= 1 per block of ``block_size`` bits)
+may take :func:`blind_rotate_block`: one step per block, K7 + K8
+(ops/cuda_rotate.py, ops/cuda_extprod.py).
+
+Every function reads the K2 bands (cuda_t.pack_bsk_band_t), the port's one
+band layout.
 """
 
 from __future__ import annotations
@@ -22,8 +31,11 @@ import torch
 
 from ..params import TFHEParams
 from ..utils.torus import shr, wrap_i32
+from .cuda_ext import rotate_decompose_ext, rotate_decompose_ext_ref
 from .cuda_ext_t import (extprod_ext_t, extprod_ext_t_ref,
                          rotate_decompose_ext_t, rotate_decompose_ext_t_ref)
+from .cuda_extprod import extprod, extprod_ref
+from .cuda_rotate import rotate_decompose, rotate_decompose_ref
 from .cuda_t import (extprod_t, extprod_t_ref, rotate_decompose_t,
                      rotate_decompose_t_ref)
 from .rotate import monomial_mul, monomial_mul_blocks
@@ -107,3 +119,95 @@ def blind_rotate_extended_t(p: TFHEParams, bands: torch.Tensor,
         digits = rotate_decompose(p, acc, a_tilda[i])
         acc = extprod(digits, bands[i], acc, k, nd)
     return acc.reshape(2, k, n, b).permute(3, 1, 0, 2).contiguous()
+
+
+def blind_rotate_extended_rm(p: TFHEParams, bands: torch.Tensor,
+                             ct: torch.Tensor, lut_blocks: torch.Tensor,
+                             plain: bool = False) -> torch.Tensor:
+    """Row-major blind rotation over an extended look-up table
+    (``go_tfhe_tpu/ops/blindrotate.py:162-218``, blind_rotate_extended_tpu),
+    bit-exact with :func:`blind_rotate_extended_t`.  Per step, K6 rotates
+    and decomposes the (2, B, k*N) big accumulator, and K8 contracts the
+    digits with the k blocks folded into the batch (every block against
+    the same band) and adds the result into the accumulator.
+
+    bands:      (n_lwe, 2, 2L, 2N) int32 K2 bands.
+    ct:         (B, n_lwe+1) int32 words.
+    lut_blocks: (k, 2, N) or (B, k, 2, N) int32 trivial TRLWE blocks.
+    plain:      run the kernels' plain versions on any device.
+    Returns (B, k, 2, N); the bootstrap reads block 0 at index 0.
+    """
+    rotate_decompose_e = (rotate_decompose_ext_ref if plain
+                          else rotate_decompose_ext)
+    contract = extprod_ref if plain else extprod
+    n_lwe, k, n, nd = p.lwe_n, p.poly_extend_factor, p.n, p.digit_limbs
+    big = 2 * k * n
+    b = ct.shape[0]
+    b_tilda = big - mod_switch_general(ct[:, n_lwe], big)           # (B,)
+    acc = monomial_mul_blocks(lut_blocks.expand(b, k, 2, n), b_tilda, k)
+    # (B, k, 2, N) -> (2, B, k*N): block r in columns [rN, (r+1)N)
+    acc = acc.permute(2, 0, 1, 3).reshape(2, b, k * n).contiguous()
+    a_tilda = mod_switch_general(ct[:, :n_lwe], big).t().contiguous()
+    for i in range(n_lwe):
+        digits = rotate_decompose_e(p, acc, a_tilda[i])
+        acc = contract(digits.view(b * k, -1), bands[i],
+                       acc.view(2, b * k, n), nd).view(2, b, k * n)
+    return acc.view(2, b, k, n).permute(1, 2, 0, 3).contiguous()
+
+
+def block_bands(p: TFHEParams, bands: torch.Tensor) -> torch.Tensor:
+    """The K2 bands of the full blocks as K8 reads them in a block step:
+    (full, 2, bs*2L, 2N), rows block-bit-major (block bit j, then its 2L
+    BSK rows), the order of ``go_tfhe_tpu/ops/blindrotate.py:497-503`` and
+    of K7's digit rows.  A copy of the first full*bs bands, made once per
+    blind rotation."""
+    bs, l2 = p.block_size, 2 * p.l
+    full = p.lwe_n // bs
+    w = bands.shape[-1]
+    return bands[:full * bs].reshape(full, bs, 2, l2, w).transpose(1, 2
+                                                                   ).reshape(
+        full, 2, bs * l2, w)
+
+
+def blind_rotate_block(p: TFHEParams, bands: torch.Tensor, ct: torch.Tensor,
+                       testvec: torch.Tensor, plain: bool = False
+                       ) -> torch.Tensor:
+    """Block blind rotation (``go_tfhe_tpu/ops/blindrotate.py:451-531``,
+    blind_rotate_block_tpu; bit-exact with the portable blind_rotate_block,
+    :258-310, on keys whose dropped limbs are zero).  Needs a block-binary
+    lv0 key: with at most one key bit set per block,
+    X^(sum_j s_j a_j) = 1 + sum_j s_j (X^(a_j) - 1), so one step per block
+    of bs = block_size bits is
+
+        acc' = acc + sum_j BSK[j] (x) (X^(a_j) acc - acc):
+
+    K7 rotates the same accumulator by the block's bs amounts and
+    decomposes, K8 contracts the bs*2L digit rows against the block's bands
+    (:func:`block_bands`) and adds into the accumulator.  ceil(n_lwe / bs)
+    sequential steps instead of n_lwe; a ragged tail of n_lwe mod bs bits
+    runs per-bit steps (K7 with bs = 1, K8 over 2L rows).
+
+    bands:   (n_lwe, 2, 2L, 2N) int32 K2 bands.
+    ct:      (B, n_lwe+1) int32 words.
+    testvec: (2, N) or (B, 2, N) int32 words.
+    plain:   run the kernels' plain versions on any device.
+    Returns (B, 2, N) int32 TRLWE accumulators.
+    """
+    rotate = rotate_decompose_ref if plain else rotate_decompose
+    contract = extprod_ref if plain else extprod
+    n_lwe, bs, nd = p.lwe_n, p.block_size, p.digit_limbs
+    full, rem = divmod(n_lwe, bs)
+    b = ct.shape[0]
+    b_tilda = 2 * p.n - mod_switch_2n(ct[:, n_lwe], p)             # (B,)
+    acc = monomial_mul(testvec.expand(b, 2, p.n), b_tilda[:, None])
+    acc = acc.transpose(0, 1).contiguous()                          # (2, B, N)
+    a_tilda = mod_switch_2n(ct[:, :n_lwe], p).t().contiguous()      # (n_lwe, B)
+    a_blk = a_tilda[:full * bs].view(full, bs, b)
+    band_blk = block_bands(p, bands)
+    for i in range(full):
+        digits = rotate(p, acc, a_blk[i])
+        acc = contract(digits, band_blk[i], acc, nd)
+    for idx in range(full * bs, n_lwe):                # ragged tail, per bit
+        digits = rotate(p, acc, a_tilda[idx])
+        acc = contract(digits, bands[idx], acc, nd)
+    return acc.transpose(0, 1).contiguous()                         # (B, 2, N)

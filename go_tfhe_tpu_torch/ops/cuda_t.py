@@ -16,7 +16,8 @@ Each kernel has a wrapper and a plain PyTorch version beside it:
 A wrapper runs the plain version for CPU tensors and launches the CUDA
 kernel for CUDA tensors; it never falls back from one to the other.  Each
 launch adds one to ``launch_counts[<wrapper name>]``, which also counts the
-extended-LUT kernels K4/K5 (ops/cuda_ext_t.py).
+extended-LUT kernels K4/K5 (ops/cuda_ext_t.py) and the row-major kernels
+K6 (ops/cuda_ext.py), K7 (ops/cuda_rotate.py) and K8 (ops/cuda_extprod.py).
 """
 
 from __future__ import annotations
@@ -36,7 +37,9 @@ from .rotate import monomial_mul
 _EXTPROD_TN = 64
 
 launch_counts = {"rotate_decompose_t": 0, "extprod_t": 0,
-                 "rotate_decompose_ext_t": 0, "extprod_ext_t": 0}
+                 "rotate_decompose_ext_t": 0, "extprod_ext_t": 0,
+                 "rotate_decompose_ext": 0, "rotate_decompose": 0,
+                 "extprod": 0}
 
 
 def reset_launch_counts() -> None:

@@ -37,3 +37,20 @@ def binary_key(gen: torch.Generator, n: int, device) -> torch.Tensor:
     x = torch.randint(0, 2, (n,), dtype=TORUS, generator=gen,
                       device=gen.device)
     return x.to(device)
+
+
+def block_binary_key(gen: torch.Generator, n: int, block_size: int,
+                     device) -> torch.Tensor:
+    """Block-binary secret key bits (``go_tfhe_tpu/utils/rng.py:34-53``):
+    Hamming weight <= 1 per block of ``block_size`` bits, each block
+    uniform over its block_size + 1 patterns of weight <= 1.  A ragged
+    final block of r = n mod block_size bits is sampled the same way over
+    its r + 1 patterns."""
+    bs = block_size
+    full, rem = divmod(n, bs)
+    u = torch.randint(0, bs + 1, (full,), generator=gen, device=gen.device)
+    bits = (u[:, None] == torch.arange(bs, device=gen.device)).reshape(-1)
+    if rem:
+        v = torch.randint(0, rem + 1, (1,), generator=gen, device=gen.device)
+        bits = torch.cat([bits, v == torch.arange(rem, device=gen.device)])
+    return bits.to(TORUS).to(device)

@@ -181,20 +181,23 @@ def test_native_encrypt_noise_statistics():
 
 
 def test_unported_features_raise(shared):
-    """What the port does not serve yet raises on every device: block-binary
-    keys (ROADMAP Queue 1 item 9) and uint8's extended tables, which the
-    JAX package runs through the row-major kernels (Queue 2 K6/K8)."""
+    """What earlier slices refused is served now, and what the JAX package
+    refuses the port refuses too: block-binary keys on a profile with
+    block_size 1 ride the per-bit path (equal to the uniform route, as in
+    the JAX dispatch), uint8's extended tables route to the row-major
+    kernels (K6/K8), and block-binary keygen at block_size 1 raises
+    ValueError (go_tfhe_tpu/keys.py:110-113)."""
     _, _, tck, ca, _ = shared["test_fast"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        engine.bootstrap(dataclasses.replace(tck, block_binary=True), _t(ca))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        engine.bootstrap_many(dataclasses.replace(tck, block_binary=True),
-                              _t(ca), tck.testvec, k=2)
-    zeros = np.zeros((1,), np.uint32)
+    blk = dataclasses.replace(tck, block_binary=True)
+    assert engine._route(blk) == "blind_rotate_t"
+    np.testing.assert_array_equal(engine.bootstrap(blk, _t(ca)).numpy(),
+                                  engine.bootstrap(tck, _t(ca)).numpy())
+    np.testing.assert_array_equal(
+        engine.bootstrap_many(blk, _t(ca), tck.testvec, k=2).numpy(),
+        engine.bootstrap_many(tck, _t(ca), tck.testvec, k=2).numpy())
     for name in ("uint8", "uint8_centered"):
         ck_ext = dataclasses.replace(tck, params=params.get_params(name))
-        with pytest.raises(NotImplementedError, match="Queue 2 K6/K8"):
-            engine.bootstrap(ck_ext, _t(zeros))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        keys.gen_secret_key(torch.Generator(), params.TEST_BLOCK, "cpu",
+        assert engine._route(ck_ext) == "blind_rotate_extended_rm"
+    with pytest.raises(ValueError, match="block_size"):
+        keys.gen_secret_key(torch.Generator(), params.TEST_FAST, "cpu",
                             block_binary=True)

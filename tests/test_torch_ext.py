@@ -353,17 +353,32 @@ def test_native_keygen_extended_pbs():
 @pytest.mark.parametrize("device", ["cpu", "meta"])
 def test_uint8_raises_naming_k6_k8(device):
     """uint8 fails ext_t_fits and reaches the row-major kernels in the JAX
-    package; the port refuses it on every device before any work."""
+    package; the port routes it to K6/K8 on every device.  On the CPU a
+    uint8-shaped bootstrap (k 9, N 2048, nd 3; one step) runs the plain
+    versions; on a tensor that is neither on the CPU nor on a card the
+    K6 wrapper raises instead of falling back to its plain version."""
     for name in ("uint8", "uint8_centered"):
         p = params.get_params(name)
-        tv = torch.zeros((p.poly_extend_factor, 2, p.n), dtype=torch.int32,
-                         device=device)
-        ck = keys.CloudKey(testvec=tv, ksk=tv, bsk=tv, bands=tv, params=p)
+        if device == "cpu":
+            p = dataclasses.replace(p, lwe_n=1)
+        k = p.poly_extend_factor
+        tv = torch.zeros((k, 2, p.n), dtype=torch.int32, device=device)
+        ksk = torch.zeros((p.n, p.iks_t, p.base, p.lwe_n + 1),
+                          dtype=torch.int32, device=device)
+        bands = torch.zeros((p.lwe_n, 2, 2 * p.l, 2 * p.n), dtype=torch.int32,
+                            device=device)
+        ck = keys.CloudKey(testvec=tv, ksk=ksk, bsk=None, bands=bands,
+                           params=p)
+        assert engine._route(ck) == "blind_rotate_extended_rm"
         ct = torch.zeros((2, p.lwe_n + 1), dtype=torch.int32, device=device)
-        with pytest.raises(NotImplementedError, match="Queue 2 K6/K8"):
-            engine.bootstrap(ck, ct)
-        with pytest.raises(NotImplementedError, match="Queue 2 K6/K8"):
-            lut.bootstrap_lut(ck, ct, tv)
+        if device == "cpu":
+            out = engine.bootstrap(ck, ct)
+            assert out.shape == (2, p.lwe_n + 1) and not out.any()
+        else:
+            with pytest.raises(ValueError, match="expected a tensor on"):
+                engine.bootstrap(ck, ct)
+            with pytest.raises(ValueError, match="expected a tensor on"):
+                lut.bootstrap_lut(ck, ct, tv)
 
 
 # ---------------------------------------------------------------------------

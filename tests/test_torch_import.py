@@ -37,11 +37,15 @@ def test_package_imports_without_jax():
 
 def test_kernel_module_imports_without_nvcc():
     res = _run_without_jax("""
-        from go_tfhe_tpu_torch.ops import _build, cuda_ext_t, cuda_t
+        from go_tfhe_tpu_torch.ops import (_build, cuda_ext, cuda_ext_t,
+                                           cuda_extprod, cuda_rotate, cuda_t)
         assert cuda_t.launch_counts == {"rotate_decompose_t": 0,
                                         "extprod_t": 0,
                                         "rotate_decompose_ext_t": 0,
-                                        "extprod_ext_t": 0}
+                                        "extprod_ext_t": 0,
+                                        "rotate_decompose_ext": 0,
+                                        "rotate_decompose": 0,
+                                        "extprod": 0}
         assert _build._lib is None
         print("ok")
     """, CUDA_HOME="/nonexistent")
