@@ -23,9 +23,15 @@ entry points a user calls:
 * the block blind rotation: a block-binary key made on the card at
   ``128bit_fast`` (block_size 3), ``gates.NAND`` on 4096 bit pairs with
   ``engine.PREFER_BLOCK_ROTATION`` set (kernels K7 + K8, 234 steps), and
-  the same keys with the flag off (K1 + K2, 700 steps).
+  the same keys with the flag off (K1 + K2, 700 steps);
+* the per-bit routes beside K1 + K2, on the first keys, ``gates.NAND`` on
+  4096 bit pairs each: a key with ``transposed=False`` through
+  ``blind_rotate_tpu`` with ``blindrotate.FUSED_STEP`` set (the fused step
+  K3, 700 launches) and unset (K7 + K8, 700 each), and
+  ``engine.PREFER_PIPE`` through ``blind_rotate_pipe`` (one K1, then 1400
+  K9 half-batch steps), with K1 + K2 timed again in the same phase.
 
-Before that it builds the seven Hopper kernels from
+Before that it builds the nine Hopper kernels from
 ``go_tfhe_tpu_torch/csrc/`` and holds each against its plain PyTorch
 version (tolerance 0) at the paths' shapes, wide-digit shapes, ragged
 batches and the edge rotation amounts, and times each (CUDA events).
@@ -51,8 +57,9 @@ import numpy as np
 import torch
 
 from go_tfhe_tpu_torch import cipher, engine, gates, keys, lut, params
-from go_tfhe_tpu_torch.ops import (_build, cuda_ext, cuda_ext_t,
-                                   cuda_extprod, cuda_rotate, cuda_t)
+from go_tfhe_tpu_torch.ops import (_build, blindrotate, cuda_ext, cuda_ext_t,
+                                   cuda_extprod, cuda_pipe, cuda_rotate,
+                                   cuda_step, cuda_t)
 from go_tfhe_tpu_torch.ops.blindrotate import block_bands
 
 BATCH = 4096
@@ -67,6 +74,13 @@ K1K2 = ("rotate_decompose_t", "extprod_t")
 K4K5 = ("rotate_decompose_ext_t", "extprod_ext_t")
 K6K8 = ("rotate_decompose_ext", "extprod")
 K7K8 = ("rotate_decompose", "extprod")
+PIPE_HALF = BATCH // 2
+PROFILE = False           # set by --profile
+# The least time of a kernel call (PERF.md §6): the bytes it must move over
+# the H100 SXM's HBM3 rate, or its int8 tensor-core operations over the
+# dense int8 peak (NVIDIA's data sheet), whichever is larger.
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12
 
 
 def check(cond: bool, msg: str) -> None:
@@ -99,18 +113,84 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def profile_batch(label: str, fn) -> None:
+    """With --profile: one more call of fn (a warm batch of a path) under
+    torch.profiler; prints the wall time, the kernel time by name (self
+    device time of the CUDA kernel events) and the device's idle share,
+    1 - kernel time / wall."""
+    if not PROFILE:
+        return
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3
+    by_name = {}
+    for e in prof.key_averages():
+        us = e.self_device_time_total
+        # kernels only: CPU ops repeat their kernels' time, and "Command
+        # Buffer Full" is the host waiting on a full queue
+        if (us > 0 and e.device_type == torch.autograd.DeviceType.CUDA
+                and e.key != "Command Buffer Full"):
+            ms, n = by_name.get(e.key, (0.0, 0))
+            by_name[e.key] = (ms + us / 1e3, n + e.count)
+    kernel_ms = sum(ms for ms, _ in by_name.values())
+    print(f"   profile {label}: wall {wall_ms:.1f} ms, kernels "
+          f"{kernel_ms:.1f} ms, idle {1 - kernel_ms / wall_ms:.4f}",
+          flush=True)
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]
+                                )[:5]:
+        print(f"     {ms:9.1f} ms {n:6d} x  {name[:90]}", flush=True)
+
+
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
 
 
-def check_launches(launches: dict, per_call: int, calls: int,
-                   kernels: tuple) -> None:
-    """``kernels`` launched per_call times per bootstrap call, every other
-    kernel not at all."""
+def check_counts(launches: dict, per_call: dict, calls: int) -> None:
+    """Each kernel launched per_call[name] times per bootstrap call, every
+    other kernel not at all."""
     for name, count in launches.items():
-        want = per_call * calls if name in kernels else 0
+        want = per_call.get(name, 0) * calls
         check(count == want,
               f"{name} launched {count} times, expected {want}")
+
+
+def kernel_bound(name: str, p, b: int, rows: int = 0) -> tuple:
+    """(bound_ms, bound_by) of one call of kernel ``name`` at profile p and
+    batch b (each half's for K9; rows: the digit rows of a K7/K8 step, 2L
+    by default).  Bytes: each input read once, each output written once.
+    Operations: 2 per multiply-add of an int8 digit limb and an int8 key
+    limb whose weight is below 2^32 (the TPU kernels' limb pairs; the
+    lowest ``kernel_limb_drop`` key limbs are dropped)."""
+    n, l2, nd, k = p.n, 2 * p.l, p.digit_limbs, p.poly_extend_factor
+    rows = rows or l2
+    lo = p.kernel_limb_drop if nd == 1 else 0
+    pairs = sum(1 for i in range(nd) for j in range(lo, 4) if i + j < 4)
+    acc = 2 * k * n * b * 4                     # one accumulator, words
+    band = 2 * rows * 2 * n * 4
+    macs = 0
+    if name in ("rotate_decompose_t", "rotate_decompose_ext_t",
+                "rotate_decompose_ext", "rotate_decompose"):
+        bs = rows // l2
+        nbytes = acc + bs * b * 4 + k * nd * rows * n * b
+    elif name in ("extprod_t", "extprod_ext_t", "extprod"):
+        nbytes = k * nd * rows * n * b + band + 2 * acc
+        macs = 2 * k * n * b * rows * n
+    elif name == "fused_rotate_step":
+        nbytes = 2 * acc + b * 4 + band
+        macs = 2 * n * b * rows * n
+    elif name == "pipe_step":             # X: digits, acc in, out; Y: acc,
+        nbytes = 2 * nd * rows * n * b + band + 3 * acc + b * 4   # amounts,
+        macs = 2 * n * b * rows * n                               # digits
+    else:
+        raise ValueError(name)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * macs * pairs / INT8_OPS_PER_S * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
 def margin_sigmas(phase_words: np.ndarray, ideal: np.ndarray,
@@ -344,6 +424,74 @@ def rowmajor_kernels_against_plain(gen, dev, errs, times):
             for name, (ms, plain_ms) in extra.items()}
 
 
+def step_pipe_kernels_against_plain(gen, dev, errs, times):
+    """K3 and K9 against their plain versions, exactly (tolerance 0): K3 at
+    128bit_fast B 4096 and 4095 and 128bit B 4096; K9 at 128bit_fast with
+    halves of 2048, with an odd half of 2047 on either side, and 128bit
+    with halves of 2048; amounts 0, N, 2N - 1 and 2N among them.  Adds to
+    ``errs`` and ``times`` (K3 at 128bit_fast B 4096, K9 at halves of
+    2048)."""
+    fast, exact = params.P128_FAST, params.P128
+
+    def rand_words(shape):
+        return torch.randint(-2 ** 31, 2 ** 31, shape, dtype=torch.int32,
+                             device=dev, generator=gen)
+
+    def amounts(n, b):
+        t = torch.randint(0, 2 * n + 1, (b,), dtype=torch.int32, device=dev,
+                          generator=gen)
+        t[:4] = torch.tensor([0, n, 2 * n - 1, 2 * n], dtype=torch.int32,
+                             device=dev)
+        return t
+
+    def band(p):
+        bsk = rand_words((1, 2 * p.l, 2, p.n))
+        if p.key_grid_bits:
+            bsk &= ~((1 << p.key_grid_bits) - 1)
+        return cuda_t.pack_bsk_band_t(bsk, p.kernel_limb_drop)[0].contiguous()
+
+    for p, b in ((fast, BATCH), (fast, BATCH - 1), (exact, BATCH)):
+        acc, am, bd = rand_words((2, b, p.n)), amounts(p.n, b), band(p)
+        o_k = cuda_step.fused_rotate_step(p, acc, am, bd)
+        o_p = cuda_step.fused_rotate_step_ref(p, acc, am, bd)
+        torch.cuda.synchronize()
+        e3 = max_abs_err(o_k, o_p)
+        print(f"   {p.name:12s} B={b:5d}  K3 max|err| {e3}", flush=True)
+        check(e3 == 0, f"K3 disagrees with its plain version at {p.name} "
+              f"B={b}")
+        errs["fused_rotate_step"] = max(errs["fused_rotate_step"], e3)
+        if p is fast and b == BATCH:
+            times["fused_rotate_step"] = (
+                cuda_ms(lambda: cuda_step.fused_rotate_step(p, acc, am, bd),
+                        20),
+                cuda_ms(lambda: cuda_step.fused_rotate_step_ref(p, acc, am,
+                                                                bd), 3))
+    h = PIPE_HALF
+    for p, bx, by in ((fast, h, h), (fast, h, h - 1), (fast, h - 1, h),
+                      (exact, h, h)):
+        acc_x, acc_y = rand_words((2, p.n, bx)), rand_words((2, p.n, by))
+        digits_x = cuda_t.rotate_decompose_t_ref(p, acc_x, amounts(p.n, bx))
+        args = (digits_x, band(p), acc_x, acc_y, amounts(p.n, by))
+        ox, dy = cuda_pipe.pipe_step(p, *args)
+        px, py = cuda_pipe.pipe_step_ref(p, *args)
+        torch.cuda.synchronize()
+        e9 = max(max_abs_err(ox, px), max_abs_err(dy, py))
+        print(f"   {p.name:12s} halves {bx:4d}/{by:4d}  K9 max|err| {e9}",
+              flush=True)
+        check(e9 == 0, f"K9 disagrees with its plain version at {p.name} "
+              f"halves {bx}/{by}")
+        errs["pipe_step"] = max(errs["pipe_step"], e9)
+        if p is fast and bx == by == h:
+            times["pipe_step"] = (
+                cuda_ms(lambda: cuda_pipe.pipe_step(p, *args), 20),
+                cuda_ms(lambda: cuda_pipe.pipe_step_ref(p, *args), 3))
+    for name, where in (("fused_rotate_step", f"B={BATCH}"),
+                        ("pipe_step", f"halves of {h}")):
+        ms, plain_ms = times[name]
+        print(f"   {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per "
+              f"call ({fast.name}, {where})", flush=True)
+
+
 def pbs_phase(gen, dev, p, batch: int, f, steady: bool,
               kernels: tuple = K4K5) -> dict:
     """Keygen on the card, then ``lut.bootstrap_func`` with f on a batch of
@@ -381,7 +529,7 @@ def pbs_phase(gen, dev, p, batch: int, f, steady: bool,
     peak = torch.cuda.max_memory_allocated()
     print(f"   launches over {calls} bootstrap call(s): {launches}; peak "
           f"memory {peak} B", flush=True)
-    check_launches(launches, p.lwe_n, calls, kernels)
+    check_counts(launches, dict.fromkeys(kernels, p.lwe_n), calls)
 
     check(out.shape == (batch, p.lwe_n + 1) and out.dtype == torch.int32,
           f"unexpected output {tuple(out.shape)} {out.dtype}")
@@ -408,6 +556,7 @@ def pbs_phase(gen, dev, p, batch: int, f, steady: bool,
     check(cuda_t.launch_counts == launches, "the plain path launched a kernel")
     done(t1, f"{PBS_PLAIN_CHECK} ciphertexts bit-equal through the plain "
          "path; ")
+    profile_batch(p.name, lambda: lut.bootstrap_func(ck, ct, f, m))
     return {"keygen_s": keygen_s, "keygen_peak_bytes": keygen_peak,
             "first_batch_s": first_s, "steady_batch_s": steady_s,
             "pbs_per_s": rate, "margin_sigmas": sig,
@@ -457,7 +606,7 @@ def block_nand_phase(gen, dev, p, bits_a, bits_b) -> dict:
         peak = torch.cuda.max_memory_allocated()
         print(f"   launches over 2 bootstrap calls: {launches}; peak memory "
               f"{peak} B", flush=True)
-        check_launches(launches, per_call, 2, kernels)
+        check_counts(launches, dict.fromkeys(kernels, per_call), 2)
         check(torch.equal(res, res2), "two runs of one batch disagree")
         check(res.shape == (batch, p.lwe_n + 1), "unexpected output shape")
         dec = cipher.lwe_decrypt_bool(res, sk.lv0).cpu().numpy()
@@ -484,15 +633,101 @@ def block_nand_phase(gen, dev, p, bits_a, bits_b) -> dict:
             check(cuda_t.launch_counts == launches,
                   "the plain path launched a kernel")
             done(t1, f"{PLAIN_CHECK} gates bit-equal through the plain path; ")
+        profile_batch(f"block-binary key, {route}",
+                      lambda: gates.NAND(ck, ct_a, ct_b))
         out["block" if prefer else "per_bit"] = fig
     engine.PREFER_BLOCK_ROTATION = False
+    return out
+
+
+def per_bit_routes_phase(p, ck, sk, ct_a, ct_b, bits_a, bits_b,
+                         nand_out) -> dict:
+    """NAND on the bit pairs through each per-bit route on the same keys:
+    K1 + K2 (the default, timed again here so that the rates compare within
+    one phase), then (a) a key with ``transposed=False`` and
+    ``blindrotate.FUSED_STEP`` set (K3), (b) the same key with the flag
+    unset (K7 at bs 1 + K8), (c) ``engine.PREFER_PIPE`` (one K1, then two
+    K9 half-batch steps per LWE bit).  Each route: a first and a steady
+    batch, exact launch counts, every output equal to ``nand_out`` (phase
+    5's batch: the routes compute the same words), truth table, margin,
+    and (a)-(c) PLAIN_CHECK gates against the route's plain path.  Returns
+    the figures by route."""
+    batch, n = len(bits_a), p.lwe_n
+    want = ~(bits_a & bits_b)
+    row = dataclasses.replace(ck, transposed=False)
+    routes = (
+        ("k1k2", ck, False, False, {"rotate_decompose_t": n,
+                                    "extprod_t": n}),
+        ("a_fused_k3", row, True, False, {"fused_rotate_step": n}),
+        ("b_k7k8", row, False, False, {"rotate_decompose": n, "extprod": n}),
+        ("c_pipe_k9", ck, False, True, {"rotate_decompose_t": 1,
+                                        "pipe_step": 2 * n}))
+    out = {}
+    for label, key, fused, pipe, per_call in routes:
+        blindrotate.FUSED_STEP = fused
+        engine.PREFER_PIPE = pipe
+        route = engine._route(key)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_t.reset_launch_counts()
+        t1 = time.perf_counter()
+        res = gates.NAND(key, ct_a, ct_b)
+        first_s = done(t1, f"{label} ({route}): first batch ")
+        t1 = time.perf_counter()
+        res2 = gates.NAND(key, ct_a, ct_b)
+        steady_s = done(t1, f"{label} ({route}): steady batch ")
+        launches = dict(cuda_t.launch_counts)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"   launches over 2 bootstrap calls: {launches}; peak memory "
+              f"{peak} B", flush=True)
+        check_counts(launches, per_call, 2)
+        check(torch.equal(res, res2) and torch.equal(res, nand_out),
+              f"{label}: the batch differs from phase 5's NAND batch")
+        check(res.shape == (batch, p.lwe_n + 1), "unexpected output shape")
+        dec = cipher.lwe_decrypt_bool(res, sk.lv0).cpu().numpy()
+        wrong = int((dec != want).sum())
+        check(wrong == 0, f"{wrong}/{batch} NAND outputs decrypt wrong "
+              f"({label})")
+        sig, std, worst = margin_sigmas(
+            cipher.lwe_phase(res, sk.lv0).cpu().numpy(),
+            np.where(want, MARGIN, -MARGIN), MARGIN)
+        print(f"   {batch}/{batch} right; phase noise std 2^{np.log2(std):.2f}"
+              f", max |dev| 2^{np.log2(worst + 1):.2f}, margin {sig:.1f} "
+              f"sigma; gates/s first {batch / first_s:.1f}, steady "
+              f"{batch / steady_s:.1f}", flush=True)
+        check(sig >= MIN_SIGMAS,
+              f"noise margin {sig:.1f} sigma below {MIN_SIGMAS} ({label})")
+        if label != "k1k2":
+            t1 = time.perf_counter()
+            prepared = engine.prepare_nand(ct_a[:PLAIN_CHECK],
+                                           ct_b[:PLAIN_CHECK])
+            plain = engine.bootstrap(key, prepared, plain=True)
+            check(torch.equal(plain, res[:PLAIN_CHECK]),
+                  f"{label}: the kernel path disagrees with the plain path")
+            check(cuda_t.launch_counts == launches,
+                  "the plain path launched a kernel")
+            done(t1, f"{PLAIN_CHECK} gates bit-equal through the plain "
+                 "path; ")
+        profile_batch(f"{label} ({route})",
+                      lambda: gates.NAND(key, ct_a, ct_b))
+        out[label] = {"route": route, "first_batch_s": first_s,
+                      "steady_batch_s": steady_s,
+                      "gates_per_s": batch / steady_s, "margin_sigmas": sig,
+                      "peak_bytes": peak, "launches": launches}
+    blindrotate.FUSED_STEP = False
+    engine.PREFER_PIPE = False
     return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--profile", action="store_true",
+                    help="one more warm batch of each path of phases 5 and "
+                    "7-12 under torch.profiler (kernel breakdown, idle)")
     args = ap.parse_args()
+    global PROFILE
+    PROFILE = args.profile
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -528,6 +763,7 @@ def main() -> int:
     errs, times = kernels_against_plain(gen, dev)
     ext_kernels_against_plain(gen, dev, errs, times)
     shape_times = rowmajor_kernels_against_plain(gen, dev, errs, times)
+    step_pipe_kernels_against_plain(gen, dev, errs, times)
     done(t0)
 
     p = params.P128_FAST
@@ -568,7 +804,7 @@ def main() -> int:
     launches = dict(cuda_t.launch_counts)
     print(f"   launches over {calls} bootstrap calls: {launches}",
           flush=True)
-    check_launches(launches, p.lwe_n, calls, K1K2)
+    check_counts(launches, dict.fromkeys(K1K2, p.lwe_n), calls)
 
     check(out.shape == (BATCH, p.lwe_n + 1) and out.dtype == torch.int32,
           f"unexpected output {tuple(out.shape)} {out.dtype}")
@@ -601,6 +837,7 @@ def main() -> int:
     check(cuda_t.launch_counts == launches,
           "the plain path launched a kernel")
     done(t0, "bit-equal; ")
+    profile_batch("NAND (blind_rotate_t)", lambda: gates.NAND(ck, ct_a, ct_b))
 
     t0 = phase(f"7. AND_OR batch of {BATCH} through engine.bootstrap_many")
     torch.cuda.synchronize()
@@ -610,7 +847,7 @@ def main() -> int:
     and_or_s = done(t1, "batch ")
     and_or_launches = dict(cuda_t.launch_counts)
     print(f"   launches: {and_or_launches}", flush=True)
-    check_launches(and_or_launches, p.lwe_n, 1, K1K2)
+    check_counts(and_or_launches, dict.fromkeys(K1K2, p.lwe_n), 1)
     and_or_sigmas = []
     for name, got, truth in (("AND", out_and, bits_a & bits_b),
                              ("OR", out_or, bits_a | bits_b)):
@@ -635,6 +872,7 @@ def main() -> int:
     check(cuda_t.launch_counts == and_or_launches,
           "the plain path launched a kernel")
     done(t0, f"{PLAIN_CHECK} pairs bit-equal through the plain path; ")
+    profile_batch("AND_OR", lambda: gates.AND_OR(ck, ct_a, ct_b))
 
     m6 = params.UINT6_CENTERED.message_modulus
     t0 = phase(f"8. {params.UINT6_CENTERED.name} PBS, batch {UINT6_BATCH}, "
@@ -670,37 +908,65 @@ def main() -> int:
     blk = block_nand_phase(gen, dev, p, bits_a, bits_b)
     done(t0)
 
-    path_launches = {"rotate_decompose_t": launches["rotate_decompose_t"],
-                     "extprod_t": launches["extprod_t"],
-                     "rotate_decompose_ext_t":
-                         u6["launches"]["rotate_decompose_ext_t"],
-                     "extprod_ext_t": u6["launches"]["extprod_ext_t"],
-                     "rotate_decompose_ext":
-                         u8["launches"]["rotate_decompose_ext"],
-                     "rotate_decompose":
-                         blk["block"]["launches"]["rotate_decompose"],
-                     "extprod": u8["launches"]["extprod"]
-                     + blk["block"]["launches"]["extprod"]}
-    sources = {
-        "rotate_decompose_t": ("go_tfhe_tpu_torch/csrc/rotdec_t.cu",
-                               "go_tfhe_tpu/ops/pallas_t.py:122"),
-        "extprod_t": ("go_tfhe_tpu_torch/csrc/extprod_t.cu",
-                      "go_tfhe_tpu/ops/pallas_t.py:210"),
-        "rotate_decompose_ext_t": ("go_tfhe_tpu_torch/csrc/rotdec_ext_t.cu",
-                                   "go_tfhe_tpu/ops/pallas_t.py:348"),
-        "extprod_ext_t": ("go_tfhe_tpu_torch/csrc/extprod_ext_t.cu",
-                          "go_tfhe_tpu/ops/pallas_t.py:433"),
-        "rotate_decompose_ext": ("go_tfhe_tpu_torch/csrc/rotdec_ext.cu",
-                                 "go_tfhe_tpu/ops/pallas_ext.py:128"),
-        "rotate_decompose": ("go_tfhe_tpu_torch/csrc/rotdec.cu",
-                             "go_tfhe_tpu/ops/pallas_rotate.py:99"),
-        "extprod": ("go_tfhe_tpu_torch/csrc/extprod.cu",
-                    "go_tfhe_tpu/ops/pallas_extprod.py:180")}
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": path_launches[name], "max_abs_err": errs[name],
-         "ms": times[name][0], "plain_ms": times[name][1]}
-        for name, (src, rep) in sources.items()],
+    t0 = phase(f"12. NAND batch of {BATCH} at {p.name} through the per-bit "
+               "routes: K1 + K2, (a) K3, (b) K7 + K8, (c) K1 + K9")
+    torch.cuda.empty_cache()
+    per_bit = per_bit_routes_phase(p, ck, sk, ct_a, ct_b, bits_a, bits_b,
+                                   out)
+    base = per_bit["k1k2"]["gates_per_s"]
+    for label, fig in per_bit.items():
+        print(f"   {label:10s} {fig['gates_per_s']:9.1f} gates/s "
+              f"({fig['gates_per_s'] / base:.3f} x K1 + K2), margin "
+              f"{fig['margin_sigmas']:.1f} sigma", flush=True)
+    done(t0)
+
+    runs = {"nand": launches, "and_or": and_or_launches,
+            "uint6_centered": u6["launches"],
+            "uint7_centered": u7["launches"],
+            "uint8_centered": u8["launches"],
+            "block_nand": blk["block"]["launches"],
+            "block_key_per_bit_nand": blk["per_bit"]["launches"],
+            **{f"per_bit_{label}": fig["launches"]
+               for label, fig in per_bit.items()}}
+    u6p, u8p = params.UINT6_CENTERED, params.UINT8_CENTERED
+    # name: (source, TPU kernel, the timed shape: profile, batch, rows)
+    kernels = {
+        "rotate_decompose_t": ("rotdec_t.cu", "pallas_t.py:122",
+                               (p, BATCH, 0)),
+        "extprod_t": ("extprod_t.cu", "pallas_t.py:210", (p, BATCH, 0)),
+        "fused_rotate_step": ("step.cu", "pallas_step.py:140",
+                              (p, BATCH, 0)),
+        "rotate_decompose_ext_t": ("rotdec_ext_t.cu", "pallas_t.py:348",
+                                   (u6p, UINT6_BATCH, 0)),
+        "extprod_ext_t": ("extprod_ext_t.cu", "pallas_t.py:433",
+                          (u6p, UINT6_BATCH, 0)),
+        "rotate_decompose_ext": ("rotdec_ext.cu", "pallas_ext.py:128",
+                                 (u8p, UINT8_BATCH, 0)),
+        "rotate_decompose": ("rotdec.cu", "pallas_rotate.py:99",
+                             (p, BATCH, 12)),
+        "extprod": ("extprod.cu", "pallas_extprod.py:180", (p, BATCH, 12)),
+        "pipe_step": ("pipe.cu", "pallas_pipe.py:174", (p, PIPE_HALF, 0))}
+    entries = []
+    for name, (src, rep, shape) in kernels.items():
+        bound_ms, bound_by = kernel_bound(name, *shape)
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"go_tfhe_tpu_torch/csrc/{src}",
+            "replaces": f"go_tfhe_tpu/ops/{rep}",
+            "launches": sum(run[name] for run in runs.values()),
+            "max_abs_err": errs[name], "ms": times[name][0],
+            "plain_ms": times[name][1], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None})
+    shape_bounds = {"rotate_decompose bs=1 B=4096": ("rotate_decompose",
+                                                     p, BATCH, 4),
+                    "extprod 4 rows B=4096": ("extprod", p, BATCH, 4),
+                    "extprod uint8 B'=2304": ("extprod", u8p, UINT8_BATCH,
+                                              0)}
+    for key, (name, *shape) in shape_bounds.items():
+        shape_times[key]["bound_ms"], shape_times[key]["bound_by"] = (
+            kernel_bound(name, *shape))
+    print(json.dumps({
+        "kernels": entries,
         "keygen_s": keygen_s, "first_batch_s": first_s,
         "steady_gates_per_s": steady_rate, "one_gate_s": latency_s,
         "margin_sigmas": sigmas,
@@ -711,14 +977,11 @@ def main() -> int:
         "block_nand": {"keygen_s": blk["keygen_s"], **{
             mode: {k: v for k, v in blk[mode].items() if k != "launches"}
             for mode in ("block", "per_bit")}},
+        "per_bit_routes": {label: {k: v for k, v in fig.items()
+                                   if k != "launches"}
+                           for label, fig in per_bit.items()},
         "kernel_shape_times": shape_times,
-        "path_launches": {"nand": launches, "and_or": and_or_launches,
-                          "uint6_centered": u6["launches"],
-                          "uint7_centered": u7["launches"],
-                          "uint8_centered": u8["launches"],
-                          "block_nand": blk["block"]["launches"],
-                          "block_key_per_bit_nand":
-                              blk["per_bit"]["launches"]}}))
+        "path_launches": runs}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -10,10 +10,15 @@ Served so far: keygen (uniform or block-binary keys), encryption, the
 batched gate bootstrap, the ten two-input gates and ``AND_OR``,
 programmable bootstrapping (``lut``: shared and per-ciphertext tables) and
 the many-LUT bootstrap on the plain profiles, extended look-up tables at
-uint6, uint7 and uint8 (and their centered variants), and the block blind
-rotation for block-binary keys (``engine.PREFER_BLOCK_ROTATION``).  The
-card runs ``128bit_fast``, ``uint6_centered``, ``uint7_centered`` and
-``uint8_centered``.
+uint6, uint7 and uint8 (and their centered variants), the block blind
+rotation for block-binary keys (``engine.PREFER_BLOCK_ROTATION``), the
+row-major per-bit rotation for keys with ``transposed=False`` (K7 + K8, or
+the fused step K3 with ``ops.blindrotate.FUSED_STEP``) and the half-batch
+pipelined rotation (``engine.PREFER_PIPE``, K1 + K9): every kernel of the
+JAX package has its Hopper counterpart.  The card runs ``128bit_fast``,
+``uint6_centered``, ``uint7_centered`` and ``uint8_centered``.  Keys and
+tables made from arrays or files go to the card unless the caller passes
+``device="cpu"``.
 """
 
 from . import cipher, engine, gates, keys, lut, ops, utils

@@ -9,23 +9,33 @@ The kernels mask a ragged batch themselves, so no batch padding is needed.
 
 Routing (:func:`_route`) follows the JAX package's TPU dispatch
 (``_tpu_core_choice``), so each (profile, key) reaches the counterpart of
-the TPU kernel the JAX package reaches there:
+the TPU kernel the JAX package reaches there.  A key's ``transposed`` flag
+(keys.CloudKey) stands for the JAX key's reversed band: True (the default)
+where the JAX key carries it, False where it carries only the row-major
+band.  In the dispatch's order:
 
 * extended profiles that pass ``ext_t_fits`` (uint6, uint7 and their
-  centered variants, the toy ``test_ext2/3``): ``blind_rotate_extended_t``,
-  K4 + K5, as ``_bootstrap_core_ext_t``;
-* extended profiles that do not (uint8 and uint8_centered, k = 9):
+  centered variants, the toy ``test_ext2/3``) with a transposed key:
+  ``blind_rotate_extended_t``, K4 + K5, as ``_bootstrap_core_ext_t``;
+* other extended profiles and keys (uint8 and uint8_centered, k = 9):
   ``blind_rotate_extended_rm``, K6 + K8, as ``_bootstrap_core_ext_tpu``;
 * block-binary keys on a profile with block_size > 1 and single-limb
-  digits, when :data:`PREFER_BLOCK_ROTATION` is set: ``blind_rotate_block``,
-  K7 + K8, as ``_bootstrap_core_block_tpu``;
-* everything else (the default for block-binary keys too):
-  ``blind_rotate_t``, K1 + K2, as ``_bootstrap_core_t``.
+  digits, when :data:`PREFER_BLOCK_ROTATION` is set or the key is not
+  transposed: ``blind_rotate_block``, K7 + K8, as
+  ``_bootstrap_core_block_tpu``;
+* transposed keys on single-limb-digit profiles when :data:`PREFER_PIPE`
+  is set: ``blind_rotate_pipe``, K1 + K9 (ops/cuda_pipe.py), as
+  ``_bootstrap_core_pipe``;
+* other transposed keys (the default for block-binary keys too):
+  ``blind_rotate_t``, K1 + K2, as ``_bootstrap_core_t``;
+* other keys: ``blind_rotate_tpu``, K7 + K8 per bit, or K3 with
+  ``blindrotate.FUSED_STEP``, as ``_bootstrap_core_tpu``.
 
 ``bootstrap_many`` runs ``blind_rotate_t`` for every key, as the JAX
-package does.  (On its CPU backend the JAX package always runs block-binary
-keys through the portable block rotation; the port follows the TPU's
-choice on every device.)
+package does for transposed keys (for the others it runs the portable
+many-LUT core, whose values are the same).  (On its CPU backend the JAX
+package always runs block-binary keys through the portable block
+rotation; the port follows the TPU's choice on every device.)
 """
 
 from __future__ import annotations
@@ -36,8 +46,10 @@ import torch
 
 from .keys import CloudKey
 from .ops.blindrotate import (blind_rotate_block, blind_rotate_extended_rm,
-                              blind_rotate_extended_t, blind_rotate_t)
+                              blind_rotate_extended_t, blind_rotate_t,
+                              blind_rotate_tpu)
 from .ops.cuda_ext_t import ext_t_fits
+from .ops.cuda_pipe import blind_rotate_pipe
 from .ops.keyswitch import identity_key_switch
 from .ops.sample_extract import sample_extract
 from .utils.torus import f64_to_torus, i32
@@ -59,22 +71,35 @@ _T_QUARTER = i32(int(f64_to_torus(0.25)))
 # and tested; set this True to take it.
 PREFER_BLOCK_ROTATION = False
 
+# Route transposed keys on single-limb-digit profiles through the
+# half-batch pipelined rotation (K1 + K9) instead of K1 + K2.  Off by
+# default, as in the JAX package (go_tfhe_tpu/engine.py:52-62), whose
+# reason is a TPU measurement: Mosaic did not overlap the two halves'
+# rotation and contraction.  The H100's numbers are in PERF.md.
+PREFER_PIPE = False
+
 
 _ROTATIONS = {f.__name__: f for f in (blind_rotate_t, blind_rotate_block,
                                       blind_rotate_extended_t,
-                                      blind_rotate_extended_rm)}
+                                      blind_rotate_extended_rm,
+                                      blind_rotate_tpu, blind_rotate_pipe)}
 
 
 def _route(ck: CloudKey) -> str:
     """The blind rotation that ``bootstrap`` runs for this key: the name of
-    a function of ops/blindrotate.py (see the module docstring)."""
+    a function of ops/blindrotate.py or ops/cuda_pipe.py (see the module
+    docstring)."""
     p = ck.params
     if p.poly_extend_factor > 1:
-        return ("blind_rotate_extended_t" if ext_t_fits(p)
+        return ("blind_rotate_extended_t" if ck.transposed and ext_t_fits(p)
                 else "blind_rotate_extended_rm")
     if (ck.block_binary and p.block_size > 1 and p.digit_limbs == 1
-            and PREFER_BLOCK_ROTATION):
+            and (PREFER_BLOCK_ROTATION or not ck.transposed)):
         return "blind_rotate_block"
+    if not ck.transposed:
+        return "blind_rotate_tpu"
+    if PREFER_PIPE and p.digit_limbs == 1:
+        return "blind_rotate_pipe"
     return "blind_rotate_t"
 
 

@@ -64,7 +64,7 @@ def ORYN(ck: CloudKey, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 @functools.lru_cache(maxsize=None)
 def _and_or_table(p: TFHEParams) -> np.ndarray:
     """AND_OR's multi-LUT, built once per profile (host uint32 words)."""
-    gen = lut.Generator(p, 8)
+    gen = lut.Generator(p, 8, device="cpu")
     out_enc = lut.Encoder(8, 1.0 / 8)          # 1 -> +1/8, 7 -> -1/8
     return to_numpy_u32(gen.gen_multi_lut(
         [lambda x: 1 if x == 4 else 7,         # AND: only t = +1/4

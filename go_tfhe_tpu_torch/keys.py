@@ -8,6 +8,11 @@ package load in the other.  The CloudKey keeps the raw BSK and the K2
 bands built from it (ops/cuda_t.pack_bsk_band_t), the one band layout that
 every blind rotation reads: the block rotation views the bands of each
 block as one block step's rows (ops/blindrotate.block_bands).
+
+Entry points that make tensors from arrays or files put them on the card
+(``device="cuda"``) unless the caller asks for the host with
+``device="cpu"``; with no CUDA device they raise, as torch's ``.to("cuda")``
+does.
 """
 
 from __future__ import annotations
@@ -48,6 +53,12 @@ class CloudKey:
     #                         read by every blind rotation (K2, K5, K8)
     params: TFHEParams
     block_binary: bool = False
+    # False: the counterpart of a JAX key without the reversed band
+    # (bsk_band_rev None), which the JAX TPU dispatch sends to the
+    # row-major cores (engine._route).  Every rotation reads the same
+    # bands, so the flag costs no memory; like the bands it is not saved
+    # in ``.npz`` files.  Set it with dataclasses.replace(ck, ...).
+    transposed: bool = True
 
     def to(self, device) -> "CloudKey":
         return dataclasses.replace(
@@ -153,7 +164,7 @@ def gen_cloud_key(gen: torch.Generator, sk: SecretKey, p: TFHEParams
 # ---------------------------------------------------------------------------
 
 def cloud_key_from_numpy(profile, testvec, ksk, bsk,
-                         block_binary: bool = False, device="cpu"
+                         block_binary: bool = False, device="cuda"
                          ) -> CloudKey:
     """A CloudKey from the JAX package's uint32 arrays (the fields
     ``go_tfhe_tpu.keys.save_cloud_key`` writes); bands built from ``bsk``.
@@ -165,7 +176,7 @@ def cloud_key_from_numpy(profile, testvec, ksk, bsk,
 
 
 def secret_key_from_numpy(lv0, lv1, block_binary: bool = False,
-                          device="cpu") -> SecretKey:
+                          device="cuda") -> SecretKey:
     return SecretKey(lv0=from_numpy_u32(lv0, device),
                      lv1=from_numpy_u32(lv1, device),
                      block_binary=bool(block_binary))
@@ -177,7 +188,7 @@ def save_secret_key(path: str, sk: SecretKey) -> None:
                         block_binary=np.asarray(sk.block_binary))
 
 
-def load_secret_key(path: str, device="cpu") -> SecretKey:
+def load_secret_key(path: str, device="cuda") -> SecretKey:
     with np.load(path) as z:
         return secret_key_from_numpy(
             z["lv0"], z["lv1"],
@@ -196,7 +207,7 @@ def save_cloud_key(path: str, ck: CloudKey) -> None:
     )
 
 
-def load_cloud_key(path: str, device="cpu") -> CloudKey:
+def load_cloud_key(path: str, device="cuda") -> CloudKey:
     with np.load(path) as z:
         return cloud_key_from_numpy(
             str(z["profile"]), z["testvec"], z["ksk"], z["bsk"],

@@ -6,7 +6,8 @@ encodes the function (lut/lut.go:14-17, lut/generator.go:94-99); the PBS is
 the bootstrap engine with the table as its test vector
 (evaluator/programmable_bootstrap.go:93-115).  Table building is host-side
 numpy, float64-exact like the Go code and the JAX package; a
-:class:`Generator` returns int32 words on the device it was given.
+:class:`Generator` returns int32 words on the device it was given, the
+card unless it was given ``device="cpu"``.
 
 Tables are (2, N) for plain profiles and (k, 2, N) for extended ones
 (poly_extend_factor k > 1): the size-kN table interleaved into k blocks.
@@ -66,7 +67,7 @@ class Generator:
     of ops/rotate.monomial_mul_blocks)."""
 
     def __init__(self, p: TFHEParams, message_modulus: int | None = None,
-                 scale: float | None = None, device="cpu"):
+                 scale: float | None = None, device="cuda"):
         m = p.message_modulus if message_modulus is None else message_modulus
         self.params = p
         self.encoder = Encoder(m, scale)

@@ -28,7 +28,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 SOURCES = ("rotdec_t.cu", "extprod_t.cu", "rotdec_ext_t.cu",
-           "extprod_ext_t.cu", "rotdec_ext.cu", "rotdec.cu", "extprod.cu")
+           "extprod_ext_t.cu", "rotdec_ext.cu", "rotdec.cu", "extprod.cu",
+           "step.cu", "pipe.cu")
 HEADERS = ("extprod_tile.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -53,6 +54,12 @@ _SIGNATURES = {
     "tfhe_rotdec": (_P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_uint32, _I, _P),
     # digits, band, acc, out, n, b', rows, nd, stream
     "tfhe_extprod": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # acc, amounts, band, out, n, b, l, bgbit, offset, stream
+    "tfhe_fused_step": (_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_uint32, _P),
+    # digits_x, band, acc_x, out_x, acc_y, amt_y, dig_y, n, bx, by, l,
+    # bgbit, offset, stream
+    "tfhe_pipe_step": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                       ctypes.c_uint32, _P),
 }
 
 _lib = None           # the loaded library: built and loaded once per process

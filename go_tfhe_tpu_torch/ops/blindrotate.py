@@ -1,5 +1,5 @@
 """Blind rotation — the bootstrap hot loop, batched over ciphertexts
-(port of ``go_tfhe_tpu/ops/blindrotate.py:50-79, 162-255, 410-531``).
+(port of ``go_tfhe_tpu/ops/blindrotate.py:39-79, 162-255, 338-531``).
 
 Per input LWE coefficient the accumulator is rotated by the mod-switched
 coefficient and CMUXed with the corresponding bootstrapping-key row; the
@@ -21,6 +21,11 @@ Block-binary keys (Hamming weight <= 1 per block of ``block_size`` bits)
 may take :func:`blind_rotate_block`: one step per block, K7 + K8
 (ops/cuda_rotate.py, ops/cuda_extprod.py).
 
+:func:`blind_rotate_tpu` is the per-bit rotation in the row-major layout:
+K7 at bs = 1 + K8 per step, or the fused step K3 (ops/cuda_step.py) with
+:data:`FUSED_STEP`.  The half-batch pipelined rotation (K1 + K9) is
+ops/cuda_pipe.blind_rotate_pipe.
+
 Every function reads the K2 bands (cuda_t.pack_bsk_band_t), the port's one
 band layout.
 """
@@ -36,9 +41,17 @@ from .cuda_ext_t import (extprod_ext_t, extprod_ext_t_ref,
                          rotate_decompose_ext_t, rotate_decompose_ext_t_ref)
 from .cuda_extprod import extprod, extprod_ref
 from .cuda_rotate import rotate_decompose, rotate_decompose_ref
+from .cuda_step import fused_rotate_step, fused_rotate_step_ref
 from .cuda_t import (extprod_t, extprod_t_ref, rotate_decompose_t,
                      rotate_decompose_t_ref)
 from .rotate import monomial_mul, monomial_mul_blocks
+
+# Run blind_rotate_tpu's steps through the fused step kernel K3 instead of
+# K7 + K8.  Off by default, as in the JAX package
+# (go_tfhe_tpu/ops/blindrotate.py:39-47), whose reason is a TPU
+# measurement: Mosaic ran the fused kernel's rotation and contraction one
+# after the other.  The H100's numbers for both are in PERF.md.
+FUSED_STEP = False
 
 
 def mod_switch_2n(x: torch.Tensor, p: TFHEParams, theta: int = 0
@@ -210,4 +223,40 @@ def blind_rotate_block(p: TFHEParams, bands: torch.Tensor, ct: torch.Tensor,
     for idx in range(full * bs, n_lwe):                # ragged tail, per bit
         digits = rotate(p, acc, a_tilda[idx])
         acc = contract(digits, bands[idx], acc, nd)
+    return acc.transpose(0, 1).contiguous()                         # (B, 2, N)
+
+
+def blind_rotate_tpu(p: TFHEParams, bands: torch.Tensor, ct: torch.Tensor,
+                     testvec: torch.Tensor, plain: bool = False
+                     ) -> torch.Tensor:
+    """Per-bit blind rotation in the row-major layout
+    (``go_tfhe_tpu/ops/blindrotate.py:338-407``), bit-exact with
+    :func:`blind_rotate_t`.  The accumulator lives as (2, B, N); per step,
+    the fused kernel K3 when :data:`FUSED_STEP` is set and the digits fit
+    int8 (the JAX package's condition, :386-387), else K7 at bs = 1 and K8
+    with the accumulator (multi-limb profiles with K7/K8's ``nd`` limbs).
+    The TPU's ``tb``/``tn`` tiling arguments are not ported.
+
+    bands:   (n_lwe, 2, 2L, 2N) int32 K2 bands (cuda_t.pack_bsk_band_t).
+    ct:      (B, n_lwe+1) int32 words.
+    testvec: (2, N) or (B, 2, N) int32 words.
+    plain:   run the kernels' plain versions on any device.
+    Returns (B, 2, N) int32 TRLWE accumulators.
+    """
+    step = fused_rotate_step_ref if plain else fused_rotate_step
+    rotate = rotate_decompose_ref if plain else rotate_decompose
+    contract = extprod_ref if plain else extprod
+    n_lwe, nd = p.lwe_n, p.digit_limbs
+    int8_ok = 2 * p.l * p.n * min(p.half_bg, 128) * 128 < 1 << 31
+    fused = FUSED_STEP and p.digits_fit_int8 and int8_ok
+    b = ct.shape[0]
+    b_tilda = 2 * p.n - mod_switch_2n(ct[:, n_lwe], p)             # (B,)
+    acc = monomial_mul(testvec.expand(b, 2, p.n), b_tilda[:, None])
+    acc = acc.transpose(0, 1).contiguous()                          # (2, B, N)
+    a_tilda = mod_switch_2n(ct[:, :n_lwe], p).t().contiguous()     # (n_lwe, B)
+    for i in range(n_lwe):
+        if fused:
+            acc = step(p, acc, a_tilda[i], bands[i])
+        else:
+            acc = contract(rotate(p, acc, a_tilda[i]), bands[i], acc, nd)
     return acc.transpose(0, 1).contiguous()                         # (B, 2, N)

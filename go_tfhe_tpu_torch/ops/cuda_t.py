@@ -16,8 +16,10 @@ Each kernel has a wrapper and a plain PyTorch version beside it:
 A wrapper runs the plain version for CPU tensors and launches the CUDA
 kernel for CUDA tensors; it never falls back from one to the other.  Each
 launch adds one to ``launch_counts[<wrapper name>]``, which also counts the
-extended-LUT kernels K4/K5 (ops/cuda_ext_t.py) and the row-major kernels
-K6 (ops/cuda_ext.py), K7 (ops/cuda_rotate.py) and K8 (ops/cuda_extprod.py).
+extended-LUT kernels K4/K5 (ops/cuda_ext_t.py), the row-major kernels
+K6 (ops/cuda_ext.py), K7 (ops/cuda_rotate.py) and K8 (ops/cuda_extprod.py),
+the fused step K3 (ops/cuda_step.py) and the pipelined step K9
+(ops/cuda_pipe.py).
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ _EXTPROD_TN = 64
 launch_counts = {"rotate_decompose_t": 0, "extprod_t": 0,
                  "rotate_decompose_ext_t": 0, "extprod_ext_t": 0,
                  "rotate_decompose_ext": 0, "rotate_decompose": 0,
-                 "extprod": 0}
+                 "extprod": 0, "fused_rotate_step": 0, "pipe_step": 0}
 
 
 def reset_launch_counts() -> None:

@@ -82,7 +82,7 @@ def _t(x):
 def _port_ck(p, ck):
     return keys.cloud_key_from_numpy(p, np.asarray(ck.testvec),
                                      np.asarray(ck.ksk), np.asarray(ck.bsk),
-                                     ck.block_binary)
+                                     ck.block_binary, device="cpu")
 
 
 def _jax_block_keys(jx, p, seed, bands="auto"):
@@ -246,12 +246,12 @@ def test_block_key_npz_both_ways(jx, block_engine, tmp_path):
     sk, ck, tck, _, _ = block_engine
     path = str(tmp_path / "jax_ck.npz")
     jx.keys.save_cloud_key(path, ck)
-    loaded = keys.load_cloud_key(path)
+    loaded = keys.load_cloud_key(path, device="cpu")
     assert loaded.block_binary and loaded.params == params.TEST_BLOCK
     np.testing.assert_array_equal(loaded.bands.numpy(), tck.bands.numpy())
     spath = str(tmp_path / "jax_sk.npz")
     jx.keys.save_secret_key(spath, sk)
-    tsk = keys.load_secret_key(spath)
+    tsk = keys.load_secret_key(spath, device="cpu")
     assert tsk.block_binary
     np.testing.assert_array_equal(to_numpy_u32(tsk.lv0), np.asarray(sk.lv0))
     path = str(tmp_path / "port_ck.npz")
@@ -273,47 +273,79 @@ _JAX_CORE_ROUTE = {
     "_bootstrap_core_ext_t": "blind_rotate_extended_t",
     "_bootstrap_core_ext_tpu": "blind_rotate_extended_rm",
     "_bootstrap_core_block_tpu": "blind_rotate_block",
+    "_bootstrap_core_tpu": "blind_rotate_tpu",
+    "_bootstrap_core_pipe": "blind_rotate_pipe",
 }
 
 
 @pytest.mark.parametrize("prefer_block", [False, True])
 def test_route_matches_tpu_core_choice(jx, monkeypatch, prefer_block):
     """The port's ``_route`` names the counterpart of the core that the JAX
-    package's TPU dispatch picks, with the band layouts its keygen builds
-    (``_band_selection``).  Profiles whose N the Pallas kernels do not
-    tile (N 128) are asked at N 256, where the JAX dispatch has a core."""
+    package's TPU dispatch picks, for every profile, key kind and flag
+    (``PREFER_BLOCK_ROTATION``, ``PREFER_PIPE``): JAX keys with the band
+    layouts its keygen builds (``_band_selection``) against transposed port
+    keys, and JAX keys with only the row-major band against port keys with
+    ``transposed=False``.  Profiles whose N the Pallas kernels do not tile
+    (N 128) are asked at N 256, where the JAX dispatch has a core."""
     from go_tfhe_tpu.keys import CloudKey as JCloudKey
     from go_tfhe_tpu.keys import _band_selection
     monkeypatch.setattr(jx.engine, "_use_tpu_path", lambda p: True)
     monkeypatch.setattr(jx.engine, "PREFER_BLOCK_ROTATION", prefer_block)
     monkeypatch.setattr(engine, "PREFER_BLOCK_ROTATION", prefer_block)
     seen = set()
-    for p in sorted(set(params.PROFILES.values()), key=lambda p: p.name):
-        jp = _jparams(jx, p)
-        if jp.n % 256:
-            jp = dataclasses.replace(jp, n=256, nbit=8)
-        for block_binary in (False, True):
-            row, rev = _band_selection(jp, block_binary, "auto")
-            jck = JCloudKey(testvec=None, ksk=None, bsk=None, bsk_kernel=None,
-                            bsk_band=object() if row else None,
-                            bsk_band_rev=object() if rev else None,
-                            params=jp, block_binary=block_binary)
-            core, _ = jx.engine._tpu_core_choice(jck)
-            tck = keys.CloudKey(testvec=None, ksk=None, bsk=None, bands=None,
-                                params=p, block_binary=block_binary)
-            route = engine._route(tck)
-            assert route == _JAX_CORE_ROUTE[core.__name__], (p.name,
-                                                             block_binary)
-            seen.add((p.name, block_binary, route))
-    assert ("uint8", False, "blind_rotate_extended_rm") in seen
-    assert ("uint8_centered", True, "blind_rotate_extended_rm") in seen
-    for name in ("uint6", "uint7", "uint6_centered", "uint7_centered"):
-        assert (name, False, "blind_rotate_extended_t") in seen
-    assert ("128bit_fast", True, "blind_rotate_block" if prefer_block
-            else "blind_rotate_t") in seen
-    # wide-digit profiles (nd > 1) keep block-binary keys per bit
-    assert ("uint5", True, "blind_rotate_t") in seen
-    assert ("uint1", True, "blind_rotate_t") in seen
+    for prefer_pipe in (False, True):
+        monkeypatch.setattr(jx.engine, "PREFER_PIPE", prefer_pipe)
+        monkeypatch.setattr(engine, "PREFER_PIPE", prefer_pipe)
+        for p in sorted(set(params.PROFILES.values()), key=lambda p: p.name):
+            jp = _jparams(jx, p)
+            if jp.n % 256:
+                jp = dataclasses.replace(jp, n=256, nbit=8)
+            for block_binary in (False, True):
+                for transposed in (True, False):
+                    row, rev = (_band_selection(jp, block_binary, "auto")
+                                if transposed else (True, False))
+                    jck = JCloudKey(
+                        testvec=None, ksk=None, bsk=None, bsk_kernel=None,
+                        bsk_band=object() if row else None,
+                        bsk_band_rev=object() if rev else None, params=jp,
+                        block_binary=block_binary)
+                    core, _ = jx.engine._tpu_core_choice(jck)
+                    tck = keys.CloudKey(testvec=None, ksk=None, bsk=None,
+                                        bands=None, params=p,
+                                        block_binary=block_binary,
+                                        transposed=transposed)
+                    route = engine._route(tck)
+                    assert route == _JAX_CORE_ROUTE[core.__name__], (
+                        p.name, block_binary, transposed, prefer_pipe)
+                    seen.add((p.name, block_binary, transposed, prefer_pipe,
+                              route))
+    for pipe in (False, True):
+        assert ("uint8", False, True, pipe, "blind_rotate_extended_rm") in seen
+        assert ("uint8_centered", True, True, pipe,
+                "blind_rotate_extended_rm") in seen
+        for name in ("uint6", "uint7", "uint6_centered", "uint7_centered"):
+            assert (name, False, True, pipe, "blind_rotate_extended_t") in seen
+            # ext_t_fits holds, but a key without the reversed band takes
+            # the row-major extended kernels
+            assert (name, False, False, pipe,
+                    "blind_rotate_extended_rm") in seen
+        # a per-bit key that is not transposed: the row-major per-bit path
+        assert ("128bit_fast", False, False, pipe, "blind_rotate_tpu") in seen
+        # a block-binary int8-digit key that is not transposed takes the
+        # block rotation whatever PREFER_BLOCK_ROTATION says
+        assert ("128bit_fast", True, False, pipe,
+                "blind_rotate_block") in seen
+        # wide-digit profiles (nd > 1) keep block-binary keys per bit, and
+        # never take the pipelined path
+        assert ("uint5", True, True, pipe, "blind_rotate_t") in seen
+        assert ("uint1", True, True, pipe, "blind_rotate_t") in seen
+        assert ("uint5", True, False, pipe, "blind_rotate_tpu") in seen
+    assert ("128bit_fast", True, True, False, "blind_rotate_block"
+            if prefer_block else "blind_rotate_t") in seen
+    assert ("128bit_fast", False, True, True, "blind_rotate_pipe") in seen
+    assert ("128bit", False, True, True, "blind_rotate_pipe") in seen
+    assert ("128bit_fast", True, True, True, "blind_rotate_block"
+            if prefer_block else "blind_rotate_pipe") in seen
 
 
 # ---------------------------------------------------------------------------

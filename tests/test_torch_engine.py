@@ -53,7 +53,7 @@ def _port_params(p):
 def _port_ck(ck):
     return keys.cloud_key_from_numpy(
         _port_params(ck.params), np.asarray(ck.testvec), np.asarray(ck.ksk),
-        np.asarray(ck.bsk), ck.block_binary)
+        np.asarray(ck.bsk), ck.block_binary, device="cpu")
 
 
 def _t(x):
@@ -103,14 +103,14 @@ def test_cloud_key_npz_written_by_jax_loads(shared, tmp_path):
     sk, ck, tck, _, _ = shared["test_fast"]
     path = str(tmp_path / "ck.npz")
     jkeys.save_cloud_key(path, ck)
-    loaded = keys.load_cloud_key(path)
+    loaded = keys.load_cloud_key(path, device="cpu")
     assert loaded.params == params.TEST_FAST
     for field in ("testvec", "ksk", "bsk", "bands"):
         np.testing.assert_array_equal(getattr(loaded, field).numpy(),
                                       getattr(tck, field).numpy())
     spath = str(tmp_path / "sk.npz")
     jkeys.save_secret_key(spath, sk)
-    tsk = keys.load_secret_key(spath)
+    tsk = keys.load_secret_key(spath, device="cpu")
     np.testing.assert_array_equal(to_numpy_u32(tsk.lv0), np.asarray(sk.lv0))
 
 

@@ -232,7 +232,8 @@ def test_blind_rotate_extended_t_matches_jax(jx):
         jp, ck.bsk_band_rev, jx.jnp.asarray(ct), jx.jnp.asarray(tables),
         tb=8))
     tck = keys.cloud_key_from_numpy(p, np.asarray(ck.testvec),
-                                    np.asarray(ck.ksk), np.asarray(ck.bsk))
+                                    np.asarray(ck.ksk), np.asarray(ck.bsk),
+                                    device="cpu")
     got = blind_rotate_extended_t(p, tck.bands, _t(ct), _t(tables))
     assert got.shape == (b, p.poly_extend_factor, 2, p.n)
     np.testing.assert_array_equal(to_numpy_u32(got), want)
@@ -253,7 +254,7 @@ def ext_keys(jx):
         ct = jx.cipher.lwe_encrypt_message(k3, msgs, m, jp.lwe_alpha, sk.lv0)
         tck = keys.cloud_key_from_numpy(
             name, np.asarray(ck.testvec), np.asarray(ck.ksk),
-            np.asarray(ck.bsk))
+            np.asarray(ck.bsk), device="cpu")
         out[name] = (sk, ck, tck, msgs, ct)
     return out
 
@@ -309,7 +310,7 @@ def test_extended_cloud_key_npz_round_trips(jx, ext_keys, tmp_path):
     sk, ck, tck, _, _ = ext_keys["test_ext3"]
     path = str(tmp_path / "jax.npz")
     jx.keys.save_cloud_key(path, ck)
-    loaded = keys.load_cloud_key(path)
+    loaded = keys.load_cloud_key(path, device="cpu")
     assert loaded.params == params.TEST_EXT3
     for field in ("testvec", "ksk", "bsk", "bands"):
         np.testing.assert_array_equal(getattr(loaded, field).numpy(),
@@ -431,7 +432,8 @@ def test_extended_bootstrap_on_gpu_matches_cpu(cuda_device):
     m = p.message_modulus
     msgs = np.arange(33) % m
     ct = cipher.lwe_encrypt_message(gen, msgs, m, p.lwe_alpha, sk.lv0)
-    table = lut.Generator(p).gen_lut(lambda x: (5 * x + 2) % m)
+    table = lut.Generator(p, device="cpu").gen_lut(
+        lambda x: (5 * x + 2) % m)
     want = lut.bootstrap_lut(ck, ct, table)
     cuda_t.reset_launch_counts()
     got = lut.bootstrap_lut(ck.to(cuda_device), ct.to(cuda_device),

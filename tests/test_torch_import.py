@@ -1,7 +1,8 @@
-"""The port imports without JAX, and its kernel loader fails loudly.
+"""The port imports without JAX, its kernel loader fails loudly, and no
+entry point puts keys or tables on the CPU unless asked to.
 
-Each case runs in a fresh interpreter with ``sys.modules["jax"] = None``,
-so any import of JAX, direct or indirect, raises.
+The import cases run in a fresh interpreter with ``sys.modules["jax"] =
+None``, so any import of JAX, direct or indirect, raises.
 """
 
 import os
@@ -9,9 +10,10 @@ import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -38,15 +40,20 @@ def test_package_imports_without_jax():
 def test_kernel_module_imports_without_nvcc():
     res = _run_without_jax("""
         from go_tfhe_tpu_torch.ops import (_build, cuda_ext, cuda_ext_t,
-                                           cuda_extprod, cuda_rotate, cuda_t)
+                                           cuda_extprod, cuda_pipe,
+                                           cuda_rotate, cuda_step, cuda_t)
         assert cuda_t.launch_counts == {"rotate_decompose_t": 0,
                                         "extprod_t": 0,
                                         "rotate_decompose_ext_t": 0,
                                         "extprod_ext_t": 0,
                                         "rotate_decompose_ext": 0,
                                         "rotate_decompose": 0,
-                                        "extprod": 0}
+                                        "extprod": 0,
+                                        "fused_rotate_step": 0,
+                                        "pipe_step": 0}
         assert _build._lib is None
+        assert not any(m == "jax" or m.startswith(("jax.", "go_tfhe_tpu."))
+                       for m in sys.modules if sys.modules[m] is not None)
         print("ok")
     """, CUDA_HOME="/nonexistent")
     assert res.returncode == 0, res.stderr
@@ -86,3 +93,68 @@ def test_loader_raises_without_nvcc():
     """, CUDA_HOME="/nonexistent", PATH="/usr/bin:/bin")
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "raised"
+
+
+# ---------------------------------------------------------------------------
+# No entry point defaults to the CPU.
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def key_files(tmp_path_factory):
+    """The port's own TEST_FAST keys, made on the CPU and saved."""
+    from go_tfhe_tpu_torch import keys, params
+    from go_tfhe_tpu_torch.utils.torus import to_numpy_u32
+    p = params.TEST_FAST
+    gen = torch.Generator().manual_seed(1)
+    sk = keys.gen_secret_key(gen, p, "cpu")
+    ck = keys.gen_cloud_key(gen, sk, p)
+    d = tmp_path_factory.mktemp("keys")
+    keys.save_cloud_key(str(d / "ck.npz"), ck)
+    keys.save_secret_key(str(d / "sk.npz"), sk)
+    arrays = {f: to_numpy_u32(getattr(ck, f)) for f in ("testvec", "ksk",
+                                                        "bsk")}
+    return p, ck, sk, str(d / "ck.npz"), str(d / "sk.npz"), arrays
+
+
+def _entry_points(key_files):
+    from go_tfhe_tpu_torch import keys, lut
+    p, _, _, ck_path, sk_path, arrays = key_files
+    return {
+        "load_cloud_key": lambda **kw: keys.load_cloud_key(ck_path, **kw).bsk,
+        "load_secret_key": lambda **kw: keys.load_secret_key(sk_path,
+                                                             **kw).lv0,
+        "cloud_key_from_numpy": lambda **kw: keys.cloud_key_from_numpy(
+            p, arrays["testvec"], arrays["ksk"], arrays["bsk"], **kw).bands,
+        "gen_lut": lambda **kw: lut.Generator(p, **kw).gen_lut(
+            lambda x: 1 - x),
+    }
+
+
+@pytest.mark.parametrize("name", ["load_cloud_key", "load_secret_key",
+                                  "cloud_key_from_numpy", "gen_lut"])
+def test_entry_point_defaults_to_the_card(key_files, name):
+    """Without ``device`` the tensors go to the card: on a torch without a
+    CUDA device the call raises (as ``.to("cuda")`` does) and returns no
+    host tensor."""
+    call = _entry_points(key_files)[name]
+    if torch.cuda.is_available():
+        assert call().device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            call()
+
+
+@pytest.mark.parametrize("name", ["load_cloud_key", "load_secret_key",
+                                  "cloud_key_from_numpy", "gen_lut"])
+def test_entry_point_on_the_host_when_asked(key_files, name):
+    """With ``device="cpu"`` the calls give the host tensors they gave
+    before: the saved keys' words, and the table on the CPU."""
+    p, ck, sk, _, _, _ = key_files
+    got = _entry_points(key_files)[name](device="cpu")
+    assert got.device.type == "cpu"
+    want = {"load_cloud_key": ck.bsk, "load_secret_key": sk.lv0,
+            "cloud_key_from_numpy": ck.bands}.get(name)
+    if want is not None:
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+    else:
+        assert got.shape == (2, p.n)

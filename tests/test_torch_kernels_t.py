@@ -134,7 +134,8 @@ def test_blind_rotate_t_matches_jax(jx, cfg):
     want = np.asarray(jx.blind_rotate_t(jp, ck.bsk_band_rev,
                                         jx.jnp.asarray(ct), ck.testvec, tb=8))
     tck = keys.cloud_key_from_numpy(p, np.asarray(ck.testvec),
-                                    np.asarray(ck.ksk), np.asarray(ck.bsk))
+                                    np.asarray(ck.ksk), np.asarray(ck.bsk),
+                                    device="cpu")
     got = blind_rotate_t(p, tck.bands, from_numpy_u32(ct, "cpu"),
                          tck.testvec)
     np.testing.assert_array_equal(to_numpy_u32(got), want)

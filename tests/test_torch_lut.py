@@ -33,7 +33,7 @@ def _port_ck(ck):
     return keys.cloud_key_from_numpy(
         params.TFHEParams(**dataclasses.asdict(ck.params)),
         np.asarray(ck.testvec), np.asarray(ck.ksk), np.asarray(ck.bsk),
-        ck.block_binary)
+        ck.block_binary, device="cpu")
 
 
 def _t(x):
@@ -48,7 +48,7 @@ def _t(x):
 def test_generator_tables_match_jax(name):
     jp, tp = jtfhe.get_params(name), params.get_params(name)
     m = tp.message_modulus
-    jgen, tgen = jlut.Generator(jp), lut.Generator(tp)
+    jgen, tgen = jlut.Generator(jp), lut.Generator(tp, device="cpu")
     f = lambda x: (3 * x + 1) % m                          # noqa: E731
     cases = [
         (jgen.gen_lut(f), tgen.gen_lut(f)),
@@ -73,10 +73,11 @@ def test_gen_multi_lut_matches_jax(theta):
     encs = [jlut.Encoder(m, 1.0 / (4 * m))] * len(fns)
     tencs = [lut.Encoder(m, 1.0 / (4 * m))] * len(fns)
     want = jlut.Generator(jp).gen_multi_lut(fns, theta, encoders=encs)
-    got = lut.Generator(tp).gen_multi_lut(fns, theta, encoders=tencs)
+    got = lut.Generator(tp, device="cpu").gen_multi_lut(fns, theta,
+                                                         encoders=tencs)
     np.testing.assert_array_equal(to_numpy_u32(got), np.asarray(want))
     want = jlut.Generator(jp).gen_multi_lut(fns[:1], theta)
-    got = lut.Generator(tp).gen_multi_lut(fns[:1], theta)
+    got = lut.Generator(tp, device="cpu").gen_multi_lut(fns[:1], theta)
     np.testing.assert_array_equal(to_numpy_u32(got), np.asarray(want))
 
 
@@ -85,7 +86,8 @@ def test_generator_mod_switch_rounds_halves_away_from_zero(name):
     """Exact halves x/2^32*size = j + 1/2 round up (Go's math.Round), as
     in the JAX package; so do the other inputs."""
     tp = params.get_params(name)
-    tgen, jgen = lut.Generator(tp), jlut.Generator(jtfhe.get_params(name))
+    tgen = lut.Generator(tp, device="cpu")
+    jgen = jlut.Generator(jtfhe.get_params(name))
     size = tp.lut_size
     halves = [(2 * j + 1) * (1 << 32) // (2 * size) for j in (0, 5, size - 1)]
     for x, j in zip(halves, (0, 5, size - 1)):

@@ -197,7 +197,8 @@ def _jax_keys(jx, p, seed, bands="auto"):
     sk = jx.tfhe.gen_secret_key(k1, jp)
     ck = jx.tfhe.gen_cloud_key(k2, sk, jp, bands=bands)
     tck = keys.cloud_key_from_numpy(p, np.asarray(ck.testvec),
-                                    np.asarray(ck.ksk), np.asarray(ck.bsk))
+                                    np.asarray(ck.ksk), np.asarray(ck.bsk),
+                                    device="cpu")
     return ck, tck
 
 
@@ -360,7 +361,8 @@ def test_extended_rm_bootstrap_on_gpu_matches_cpu(cuda_device):
     m = p.message_modulus
     msgs = np.arange(33) % m
     ct = cipher.lwe_encrypt_message(gen, msgs, m, p.lwe_alpha, sk.lv0)
-    table = lut.Generator(p).gen_lut(lambda x: (5 * x + 2) % m)
+    table = lut.Generator(p, device="cpu").gen_lut(
+        lambda x: (5 * x + 2) % m)
     tv = table.expand(33, *table.shape)
     want = blind_rotate_extended_rm(p, ck.bands, ct, tv)
     cuda_t.reset_launch_counts()
