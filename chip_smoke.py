@@ -34,7 +34,9 @@ entry points a user calls:
 Before that it builds the nine Hopper kernels from
 ``go_tfhe_tpu_torch/csrc/`` and holds each against its plain PyTorch
 version (tolerance 0) at the paths' shapes, wide-digit shapes, ragged
-batches and the edge rotation amounts, and times each (CUDA events).
+batches, the edge rotation amounts and (K2, K5) extreme operands, and
+times each (CUDA events), K2 and K5 beside their library form
+(``torch._int_mm`` on int8 Toeplitz key limbs, ``library_ms``).
 Each path runs with the launch counters set to 0 just before it and read
 just after.
 
@@ -49,6 +51,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -146,6 +149,39 @@ def profile_batch(label: str, fn) -> None:
         print(f"     {ms:9.1f} ms {n:6d} x  {name[:90]}", flush=True)
 
 
+def demangle(mangled: str) -> str:
+    """The last name of an Itanium-mangled symbol, with its integer
+    template arguments: '_ZN..16extprod_t_kernelILi3ELi0EEEv..' ->
+    'extprod_t_kernel<3,0>'."""
+    i, name = mangled.find("_ZN") + 3, mangled
+    while 3 <= i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
+    args = re.match(r"I((?:Li\d+E)+)E", mangled[i:])
+    if args:
+        name += "<" + ",".join(re.findall(r"Li(\d+)E", args.group(1))) + ">"
+    return name
+
+
+def ptxas_report(log: str) -> list:
+    """One line per compiled kernel from nvcc's -Xptxas -v output: source,
+    kernel<template arguments>, registers, shared memory, spills."""
+    lines, src, name, spill = [], "", "", ""
+    for line in log.splitlines():
+        if line.startswith("-- "):
+            src = line[3:]
+        elif "Compiling entry function" in line:
+            name, spill = demangle(line.split("'")[1]), ""
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line:
+            used = line.split("Used", 1)[1].strip()
+            lines.append(f"{src} {name}: {used}; {spill}")
+    return lines
+
+
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
 
@@ -168,7 +204,7 @@ def kernel_bound(name: str, p, b: int, rows: int = 0) -> tuple:
     lowest ``kernel_limb_drop`` key limbs are dropped)."""
     n, l2, nd, k = p.n, 2 * p.l, p.digit_limbs, p.poly_extend_factor
     rows = rows or l2
-    lo = p.kernel_limb_drop if nd == 1 else 0
+    lo = cuda_t.band_limb_drop(p)
     pairs = sum(1 for i in range(nd) for j in range(lo, 4) if i + j < 4)
     acc = 2 * k * n * b * 4                     # one accumulator, words
     band = 2 * rows * 2 * n * 4
@@ -202,22 +238,34 @@ def margin_sigmas(phase_words: np.ndarray, ideal: np.ndarray,
     return margin / std, std, int(np.abs(dev).max())
 
 
+def library_time(fn, want: torch.Tensor, what: str) -> float:
+    """Mean device time of fn(), a kernel's library form (CUDA events),
+    after checking that it computes the kernel's function exactly."""
+    err = max_abs_err(fn(), want)
+    print(f"   {what} library form max|err| {err}", flush=True)
+    check(err == 0, f"{what}: the library form disagrees with the plain "
+          "version")
+    return cuda_ms(fn, 5)
+
+
 def kernels_against_plain(gen, dev):
     """K1 and K2 against their plain versions, exactly (tolerance 0), at
-    the main path's shapes, a wide-digit shape and ragged batches.
-    Returns ({kernel: max_abs_err}, {kernel: (ms, plain_ms)})."""
+    the main path's shapes, a wide-digit shape, ragged batches (B 1, 3,
+    127, 129, 4095) and, for K2, extreme operands (every digit limb and
+    every key limb -128, lo 0 and 1).  Returns ({kernel: max_abs_err},
+    {kernel: (ms, plain_ms)}, {kernel: library_ms})."""
     wide = params.TFHEParams(
         name="wide_nd3", lwe_n=4, lwe_alpha=1.0 / (1 << 26), n=256,
         lv1_alpha=1.0 / (1 << 30), nbit=8, bgbit=18, l=1, basebit=4,
         iks_t=6, block_size=1, message_modulus=8)
     fast, exact = params.P128_FAST, params.P128
     cases = [(fast, BATCH), (exact, BATCH), (wide, 256), (fast, 1),
-             (fast, BATCH - 1)]
+             (fast, 3), (fast, 127), (fast, 129), (fast, BATCH - 1)]
     errs = dict.fromkeys(cuda_t.launch_counts, 0)
-    times = {}
+    times, lib = {}, {}
     for p, b in cases:
         n, nd = p.n, p.digit_limbs
-        lo = p.kernel_limb_drop if nd == 1 else 0
+        lo = cuda_t.band_limb_drop(p)
         acc = torch.randint(-2 ** 31, 2 ** 31, (2, n, b), dtype=torch.int32,
                             device=dev, generator=gen)
         amounts = torch.randint(0, 2 * n + 1, (b,), dtype=torch.int32,
@@ -232,8 +280,8 @@ def kernels_against_plain(gen, dev):
 
         d_k = cuda_t.rotate_decompose_t(p, acc, amounts)
         d_p = cuda_t.rotate_decompose_t_ref(p, acc, amounts)
-        o_k = cuda_t.extprod_t(d_p, band, acc, nd)
-        o_p = cuda_t.extprod_t_ref(d_p, band, acc, nd)
+        o_k = cuda_t.extprod_t(d_p, band, acc, nd, lo)
+        o_p = cuda_t.extprod_t_ref(d_p, band, acc, nd, lo)
         torch.cuda.synchronize()
         e1, e2 = max_abs_err(d_k, d_p), max_abs_err(o_k, o_p)
         print(f"   {p.name:12s} B={b:5d}  K1 max|err| {e1}  K2 max|err| {e2}",
@@ -249,19 +297,58 @@ def kernels_against_plain(gen, dev):
                 cuda_ms(lambda: cuda_t.rotate_decompose_t_ref(p, acc,
                                                               amounts), 3))
             times["extprod_t"] = (
-                cuda_ms(lambda: cuda_t.extprod_t(d_p, band, acc, nd), 20),
-                cuda_ms(lambda: cuda_t.extprod_t_ref(d_p, band, acc, nd), 3))
+                cuda_ms(lambda: cuda_t.extprod_t(d_p, band, acc, nd, lo), 20),
+                cuda_ms(lambda: cuda_t.extprod_t_ref(d_p, band, acc, nd, lo),
+                        3))
+            lib["extprod_t"] = library_time(
+                lambda: cuda_t.extprod_t_mm(d_p, band, acc, nd, lo), o_p,
+                "extprod_t")
+            key = cuda_t.toeplitz_limbs_i8(band, lo)
+            gemm_ms = cuda_ms(lambda: cuda_t.extprod_t_mm(
+                d_p, band, acc, nd, lo, key=key), 5)
+            print(f"   extprod_t library form {lib['extprod_t']:.4f} ms per "
+                  f"call, {gemm_ms:.4f} ms with its Toeplitz limbs built",
+                  flush=True)
+    for p in (exact, fast):        # lo 0 and 1
+        e2 = extreme_case(dev, p, 256, 1)
+        errs["extprod_t"] = max(errs["extprod_t"], e2)
     for name, (ms, plain_ms) in times.items():
         print(f"   {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
               f"per call (128bit_fast, B={BATCH})", flush=True)
-    return errs, times
+    return errs, times, lib
 
 
-def ext_kernels_against_plain(gen, dev, errs, times):
+def extreme_case(dev, p, b: int, k: int) -> int:
+    """K2 (k = 1) or K5 with every digit limb -128 and every balanced key
+    limb -128 (band word 0x7F7F7F80; 0x7F7F8000 with limb 0 dropped): the
+    tile's largest s32 sums, against the plain version.  Returns max|err|."""
+    nd, lo = p.digit_limbs, cuda_t.band_limb_drop(p)
+    word = 0x7F7F8000 if lo else 0x7F7F7F80
+    band = torch.full((2, 2 * p.l, 2 * p.n), word, dtype=torch.int64,
+                      device=dev).to(torch.int32)
+    digits = torch.full((k * nd * 2 * p.l * p.n, b), -128, dtype=torch.int8,
+                        device=dev)
+    acc = torch.zeros((2, k * p.n, b), dtype=torch.int32, device=dev)
+    if k == 1:
+        o_k = cuda_t.extprod_t(digits, band, acc, nd, lo)
+        o_p = cuda_t.extprod_t_ref(digits, band, acc, nd, lo)
+    else:
+        o_k = cuda_ext_t.extprod_ext_t(digits, band, acc, k, nd, lo)
+        o_p = cuda_ext_t.extprod_ext_t_ref(digits, band, acc, k, nd, lo)
+    err = max_abs_err(o_k, o_p)
+    print(f"   {p.name:14s} B={b:5d}  extreme operands (nd {nd}, lo {lo}): "
+          f"K{2 if k == 1 else 5} max|err| {err}", flush=True)
+    check(err == 0, f"K{2 if k == 1 else 5} disagrees with its plain version "
+          f"on extreme operands at {p.name}")
+    return err
+
+
+def ext_kernels_against_plain(gen, dev, errs, times, lib):
     """K4 and K5 against their plain versions, exactly (tolerance 0), at
     the extended paths' shapes (uint6 B 2048, uint7 B 256), a k = 3,
-    nd = 3 shape at N 256, and ragged batches; the amounts include 0, kN,
-    2kN - 1 and 2kN.  Adds to ``errs`` and ``times``."""
+    nd = 3 shape at N 256, ragged batches and, for K5, extreme operands at
+    uint6 widths; the amounts include 0, kN, 2kN - 1 and 2kN.  Adds to
+    ``errs``, ``times`` and ``lib`` (K5's library form at uint6 B 2048)."""
     wide = params.TFHEParams(
         name="ext3_nd3", lwe_n=6, lwe_alpha=1.0 / (1 << 28), n=256,
         lv1_alpha=1.0 / (1 << 31), nbit=8, bgbit=18, l=1, basebit=4,
@@ -281,12 +368,13 @@ def ext_kernels_against_plain(gen, dev, errs, times):
         amounts[: min(b, 4)] = edges[: min(b, 4)]
         bsk = torch.randint(-2 ** 31, 2 ** 31, (1, 2 * p.l, 2, n),
                             dtype=torch.int32, device=dev, generator=gen)
-        band = cuda_t.pack_bsk_band_t(bsk)[0].contiguous()
+        lo = cuda_t.band_limb_drop(p)
+        band = cuda_t.pack_bsk_band_t(bsk, lo)[0].contiguous()
 
         d_k = cuda_ext_t.rotate_decompose_ext_t(p, acc, amounts)
         d_p = cuda_ext_t.rotate_decompose_ext_t_ref(p, acc, amounts)
-        o_k = cuda_ext_t.extprod_ext_t(d_p, band, acc, k, nd)
-        o_p = cuda_ext_t.extprod_ext_t_ref(d_p, band, acc, k, nd)
+        o_k = cuda_ext_t.extprod_ext_t(d_p, band, acc, k, nd, lo)
+        o_p = cuda_ext_t.extprod_ext_t_ref(d_p, band, acc, k, nd, lo)
         torch.cuda.synchronize()
         e4, e5 = max_abs_err(d_k, d_p), max_abs_err(o_k, o_p)
         print(f"   {p.name:14s} B={b:5d}  K4 max|err| {e4}  K5 max|err| {e5}",
@@ -304,9 +392,16 @@ def ext_kernels_against_plain(gen, dev, errs, times):
                     p, acc, amounts), 3))
             times["extprod_ext_t"] = (
                 cuda_ms(lambda: cuda_ext_t.extprod_ext_t(d_p, band, acc, k,
-                                                         nd), 10),
+                                                         nd, lo), 10),
                 cuda_ms(lambda: cuda_ext_t.extprod_ext_t_ref(d_p, band, acc,
-                                                             k, nd), 3))
+                                                             k, nd, lo), 3))
+            lib["extprod_ext_t"] = library_time(
+                lambda: cuda_ext_t.extprod_ext_t_mm(d_p, band, acc, k, nd,
+                                                    lo), o_p, "extprod_ext_t")
+            print(f"   extprod_ext_t library form "
+                  f"{lib['extprod_ext_t']:.4f} ms per call", flush=True)
+    e5 = extreme_case(dev, u6, 256, u6.poly_extend_factor)
+    errs["extprod_ext_t"] = max(errs["extprod_ext_t"], e5)
     for name in K4K5:
         ms, plain_ms = times[name]
         print(f"   {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
@@ -373,7 +468,7 @@ def rowmajor_kernels_against_plain(gen, dev, errs, times):
     for p, bs, b in ((fast, 3, BATCH), (fast, 3, BATCH - 1), (fast, 1, BATCH),
                      (fast, 1, BATCH - 1), (wide, 3, 256)):
         n, nd = p.n, p.digit_limbs
-        lo = p.kernel_limb_drop if nd == 1 else 0
+        lo = cuda_t.band_limb_drop(p)
         acc = rand_words((2, b, n))
         amounts = torch.randint(0, 2 * n + 1, (bs, b), dtype=torch.int32,
                                 device=dev, generator=gen)
@@ -448,7 +543,8 @@ def step_pipe_kernels_against_plain(gen, dev, errs, times):
         bsk = rand_words((1, 2 * p.l, 2, p.n))
         if p.key_grid_bits:
             bsk &= ~((1 << p.key_grid_bits) - 1)
-        return cuda_t.pack_bsk_band_t(bsk, p.kernel_limb_drop)[0].contiguous()
+        return cuda_t.pack_bsk_band_t(bsk, cuda_t.band_limb_drop(p)
+                                      )[0].contiguous()
 
     for p, b in ((fast, BATCH), (fast, BATCH - 1), (exact, BATCH)):
         acc, am, bd = rand_words((2, b, p.n)), amounts(p.n, b), band(p)
@@ -753,15 +849,14 @@ def main() -> int:
     built = _build.build()
     _build.load_library()
     print(f"   nvcc seconds: {built['seconds']:.2f} -> {built['path']}")
-    for line in built["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"   {line.strip()}")
+    for line in ptxas_report(built["log"]):
+        print(f"   {line}")
     done(t0)
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     t0 = phase("3. kernels against their plain versions")
-    errs, times = kernels_against_plain(gen, dev)
-    ext_kernels_against_plain(gen, dev, errs, times)
+    errs, times, lib = kernels_against_plain(gen, dev)
+    ext_kernels_against_plain(gen, dev, errs, times, lib)
     shape_times = rowmajor_kernels_against_plain(gen, dev, errs, times)
     step_pipe_kernels_against_plain(gen, dev, errs, times)
     done(t0)
@@ -956,7 +1051,7 @@ def main() -> int:
             "launches": sum(run[name] for run in runs.values()),
             "max_abs_err": errs[name], "ms": times[name][0],
             "plain_ms": times[name][1], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None})
+            "bound_by": bound_by, "library_ms": lib.get(name)})
     shape_bounds = {"rotate_decompose bs=1 B=4096": ("rotate_decompose",
                                                      p, BATCH, 4),
                     "extprod 4 rows B=4096": ("extprod", p, BATCH, 4),

@@ -19,6 +19,11 @@ band.  In the dispatch's order:
   ``blind_rotate_extended_t``, K4 + K5, as ``_bootstrap_core_ext_t``;
 * other extended profiles and keys (uint8 and uint8_centered, k = 9):
   ``blind_rotate_extended_rm``, K6 + K8, as ``_bootstrap_core_ext_tpu``;
+* block-binary keys on a profile with block_size > 1 whose N the TPU
+  kernels do not tile (N % 256 != 0, ``_use_tpu_path``), whatever the
+  flags: ``blind_rotate_block``, K7 + K8, as the portable
+  ``_bootstrap_core_block`` that the JAX dispatch takes there (the two are
+  bit-exact);
 * block-binary keys on a profile with block_size > 1 and single-limb
   digits, when :data:`PREFER_BLOCK_ROTATION` is set or the key is not
   transposed: ``blind_rotate_block``, K7 + K8, as
@@ -66,7 +71,8 @@ _T_QUARTER = i32(int(f64_to_torus(0.25)))
 # there the per-bit transposed path beat the block kernel (8,205 vs 7,886
 # gates/s at 128bit_fast), the block kernel's launch-count advantage no
 # longer paying for its costlier rotation.  On an H100 at 700 W the
-# per-bit path is ahead too (2,311 vs 2,223 gates/s on the same
+# per-bit path is ahead too, since its product runs on the tensor cores
+# and the block path's does not yet (6,771 vs 2,223 gates/s on the same
 # block-binary keys, batch 4096; PERF.md).  The block path stays served
 # and tested; set this True to take it.
 PREFER_BLOCK_ROTATION = False
@@ -93,8 +99,11 @@ def _route(ck: CloudKey) -> str:
     if p.poly_extend_factor > 1:
         return ("blind_rotate_extended_t" if ck.transposed and ext_t_fits(p)
                 else "blind_rotate_extended_rm")
-    if (ck.block_binary and p.block_size > 1 and p.digit_limbs == 1
-            and (PREFER_BLOCK_ROTATION or not ck.transposed)):
+    # At an N that the TPU kernels do not tile (_use_tpu_path) the JAX
+    # dispatch runs its portable block rotation, whatever the flags.
+    if ck.block_binary and p.block_size > 1 and (
+            p.n % 256 or (p.digit_limbs == 1 and (PREFER_BLOCK_ROTATION
+                                                  or not ck.transposed))):
         return "blind_rotate_block"
     if not ck.transposed:
         return "blind_rotate_tpu"

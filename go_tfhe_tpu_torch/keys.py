@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from . import cipher
-from .ops.cuda_t import pack_bsk_band_t
+from .ops.cuda_t import band_limb_drop, pack_bsk_band_t
 from .params import TFHEParams, get_params
 from .utils.rng import binary_key, block_binary_key
 from .utils.torus import TORUS, f64_to_torus, from_numpy_u32, i32
@@ -126,9 +126,8 @@ def gen_bsk(gen: torch.Generator, p: TFHEParams, sk: SecretKey
 
 
 def _cloud_key(p: TFHEParams, testvec, ksk, bsk, block_binary) -> CloudKey:
-    lo = p.kernel_limb_drop if p.digit_limbs == 1 else 0
     return CloudKey(testvec=testvec, ksk=ksk, bsk=bsk,
-                    bands=pack_bsk_band_t(bsk, lo), params=p,
+                    bands=pack_bsk_band_t(bsk, band_limb_drop(p)), params=p,
                     block_binary=block_binary)
 
 

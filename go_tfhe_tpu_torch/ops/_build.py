@@ -40,13 +40,13 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # acc, amounts, out, n, b, l, bgbit, offset, nd, stream
     "tfhe_rotdec_t": (_P, _P, _P, _I, _I, _I, _I, ctypes.c_uint32, _I, _P),
-    # digits, band, acc, out, n, b, l2, nd, stream
-    "tfhe_extprod_t": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # digits, band, acc, out, n, b, l2, nd, lo, stream
+    "tfhe_extprod_t": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # acc, amounts, out, n, k, b, l, bgbit, offset, nd, stream
     "tfhe_rotdec_ext_t": (_P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_uint32,
                           _I, _P),
-    # digits, band, acc, out, n, k, b, l2, nd, stream
-    "tfhe_extprod_ext_t": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # digits, band, acc, out, n, k, b, l2, nd, lo, stream
+    "tfhe_extprod_ext_t": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # acc, amounts, out, n, k, b, l, bgbit, offset, nd, stream
     "tfhe_rotdec_ext": (_P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_uint32, _I,
                         _P),
@@ -57,9 +57,9 @@ _SIGNATURES = {
     # acc, amounts, band, out, n, b, l, bgbit, offset, stream
     "tfhe_fused_step": (_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_uint32, _P),
     # digits_x, band, acc_x, out_x, acc_y, amt_y, dig_y, n, bx, by, l,
-    # bgbit, offset, stream
+    # bgbit, offset, lo, stream
     "tfhe_pipe_step": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                       ctypes.c_uint32, _P),
+                       ctypes.c_uint32, _I, _P),
 }
 
 _lib = None           # the loaded library: built and loaded once per process

@@ -42,8 +42,8 @@ from .cuda_ext_t import (extprod_ext_t, extprod_ext_t_ref,
 from .cuda_extprod import extprod, extprod_ref
 from .cuda_rotate import rotate_decompose, rotate_decompose_ref
 from .cuda_step import fused_rotate_step, fused_rotate_step_ref
-from .cuda_t import (extprod_t, extprod_t_ref, rotate_decompose_t,
-                     rotate_decompose_t_ref)
+from .cuda_t import (band_limb_drop, extprod_t, extprod_t_ref,
+                     rotate_decompose_t, rotate_decompose_t_ref)
 from .rotate import monomial_mul, monomial_mul_blocks
 
 # Run blind_rotate_tpu's steps through the fused step kernel K3 instead of
@@ -91,7 +91,7 @@ def blind_rotate_t(p: TFHEParams, bands: torch.Tensor, ct: torch.Tensor,
     """
     rotate_decompose = rotate_decompose_t_ref if plain else rotate_decompose_t
     extprod = extprod_t_ref if plain else extprod_t
-    n_lwe, nd = p.lwe_n, p.digit_limbs
+    n_lwe, nd, lo = p.lwe_n, p.digit_limbs, band_limb_drop(p)
     b = ct.shape[0]
     b_tilda = 2 * p.n - mod_switch_2n(ct[:, n_lwe], p, theta)      # (B,)
     tv = testvec.expand(b, 2, p.n)
@@ -100,7 +100,7 @@ def blind_rotate_t(p: TFHEParams, bands: torch.Tensor, ct: torch.Tensor,
     a_tilda = mod_switch_2n(ct[:, :n_lwe], p, theta).t().contiguous()
     for i in range(n_lwe):
         digits = rotate_decompose(p, acc, a_tilda[i])
-        acc = extprod(digits, bands[i], acc, nd)
+        acc = extprod(digits, bands[i], acc, nd, lo)
     return acc.permute(2, 0, 1).contiguous()                       # (B, 2, N)
 
 
@@ -121,6 +121,7 @@ def blind_rotate_extended_t(p: TFHEParams, bands: torch.Tensor,
                         else rotate_decompose_ext_t)
     extprod = extprod_ext_t_ref if plain else extprod_ext_t
     n_lwe, k, n, nd = p.lwe_n, p.poly_extend_factor, p.n, p.digit_limbs
+    lo = band_limb_drop(p)
     big = 2 * k * n
     b = ct.shape[0]
     b_tilda = big - mod_switch_general(ct[:, n_lwe], big)           # (B,)
@@ -130,7 +131,7 @@ def blind_rotate_extended_t(p: TFHEParams, bands: torch.Tensor,
     a_tilda = mod_switch_general(ct[:, :n_lwe], big).t().contiguous()
     for i in range(n_lwe):
         digits = rotate_decompose(p, acc, a_tilda[i])
-        acc = extprod(digits, bands[i], acc, k, nd)
+        acc = extprod(digits, bands[i], acc, k, nd, lo)
     return acc.reshape(2, k, n, b).permute(3, 1, 0, 2).contiguous()
 
 

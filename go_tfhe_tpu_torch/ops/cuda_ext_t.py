@@ -19,6 +19,9 @@ Each kernel has a wrapper and a plain PyTorch version beside it:
 * K5 :func:`extprod_ext_t` / :func:`extprod_ext_t_ref` —
   ``csrc/extprod_ext_t.cu``.
 
+:func:`extprod_ext_t_mm` computes K5's function through ``torch._int_mm``
+(the library form, a yardstick of speed); no path of the port calls it.
+
 As for K1/K2 (ops/cuda_t.py), a wrapper runs the plain version for CPU
 tensors and launches the CUDA kernel for CUDA tensors, and each launch adds
 one to ``cuda_t.launch_counts[<wrapper name>]``.
@@ -31,7 +34,8 @@ import torch
 from ..params import TFHEParams
 from ..utils.torus import TORUS
 from . import _build
-from .cuda_t import _EXTPROD_TN, _check, extprod_t_ref, launch_counts
+from .cuda_t import (_check, check_tile, extprod_t_mm, extprod_t_ref,
+                     launch_counts)
 from .decompose import gadget_decompose
 from .polymul import split_signed_limbs_i8
 from .rotate import monomial_mul_blocks
@@ -104,34 +108,53 @@ def rotate_decompose_ext_t(p: TFHEParams, acc: torch.Tensor,
 # K5: block-wise external product.
 # ---------------------------------------------------------------------------
 
+def _blocks_in_batch(contract, digits, band, acc, k, nd, lo):
+    """K2's contraction ``contract`` for each of the k blocks against the
+    same band, with the blocks folded into the batch."""
+    _, kn, b = acc.shape
+    n = kn // k
+    d = digits.reshape(k, -1, b).permute(1, 0, 2).reshape(-1, k * b)
+    a = acc.reshape(2, k, n, b).permute(0, 2, 1, 3).reshape(2, n, k * b)
+    out = contract(d, band, a, nd, lo)                          # (2, N, k*B)
+    return out.reshape(2, n, k, b).permute(0, 2, 1, 3).reshape(2, kn, b)
+
+
 def extprod_ext_t_ref(digits: torch.Tensor, band: torch.Tensor,
-                      acc: torch.Tensor, k: int, nd: int = 1
+                      acc: torch.Tensor, k: int, nd: int = 1, lo: int = 0
                       ) -> torch.Tensor:
     """Plain K5: K2's contraction (cuda_t.extprod_t_ref) for each of the k
     blocks against the same band, with the blocks folded into the batch.
 
     digits (k*ND*2L*N, B) int8 block-major; band (2, 2L, 2N) int32;
-    acc (2, k*N, B).  Returns acc + the block-wise external product."""
-    _, kn, b = acc.shape
-    n = kn // k
-    d = digits.reshape(k, -1, b).permute(1, 0, 2).reshape(-1, k * b)
-    a = acc.reshape(2, k, n, b).permute(0, 2, 1, 3).reshape(2, n, k * b)
-    out = extprod_t_ref(d, band, a, nd)                         # (2, N, k*B)
-    return out.reshape(2, n, k, b).permute(0, 2, 1, 3).reshape(2, kn, b)
+    acc (2, k*N, B).  Returns acc + the block-wise external product.
+    ``lo`` changes no value and is ignored, as in extprod_t_ref."""
+    return _blocks_in_batch(extprod_t_ref, digits, band, acc, k, nd, lo)
+
+
+def extprod_ext_t_mm(digits: torch.Tensor, band: torch.Tensor,
+                     acc: torch.Tensor, k: int, nd: int = 1, lo: int = 0
+                     ) -> torch.Tensor:
+    """K5's function through ``torch._int_mm`` (cuda_t.extprod_t_mm with
+    the blocks folded into the batch), on any device; the contract of
+    :func:`extprod_ext_t_ref`.  Used only to time the kernel against the
+    library."""
+    return _blocks_in_batch(extprod_t_mm, digits, band, acc, k, nd, lo)
 
 
 def extprod_ext_t(digits: torch.Tensor, band: torch.Tensor,
-                  acc: torch.Tensor, k: int, nd: int = 1) -> torch.Tensor:
-    """K5 (replaces pallas_t.extprod_ext_t): see the ref's contract.
-    Returns a new (2, k*N, B) tensor; ``acc`` is not modified."""
+                  acc: torch.Tensor, k: int, nd: int = 1, lo: int = 0
+                  ) -> torch.Tensor:
+    """K5 (replaces pallas_t.extprod_ext_t): see the ref's contract;
+    ``lo`` must be the band's (cuda_t.band_limb_drop).  Returns a new
+    (2, k*N, B) tensor; ``acc`` is not modified."""
     if acc.device.type == "cpu":
-        return extprod_ext_t_ref(digits, band, acc, k, nd)
+        return extprod_ext_t_ref(digits, band, acc, k, nd, lo)
     _, kn, b = acc.shape
     n = kn // k
     l2 = band.shape[1]
-    if kn % k or n % _EXTPROD_TN:
-        raise ValueError(f"extprod_ext_t: {kn} rows are not k={k} blocks of "
-                         f"a multiple of {_EXTPROD_TN} coefficients")
+    if kn % k:
+        raise ValueError(f"extprod_ext_t: {kn} rows are not k={k} blocks")
+    check_tile("extprod_ext_t", n, l2, lo)
     _check("acc", acc, TORUS, (2, kn, b), acc.device)
     _check("band", band, TORUS, (2, l2, 2 * n), acc.device)
     _check("digits", digits, torch.int8, (k * nd * l2 * n, b), acc.device)
@@ -140,7 +163,7 @@ def extprod_ext_t(digits: torch.Tensor, band: torch.Tensor,
     with torch.cuda.device(acc.device):
         rc = lib.tfhe_extprod_ext_t(
             digits.data_ptr(), band.data_ptr(), acc.data_ptr(),
-            out.data_ptr(), n, k, b, l2, nd,
+            out.data_ptr(), n, k, b, l2, nd, lo,
             torch.cuda.current_stream().cuda_stream)
     if rc:
         raise RuntimeError(

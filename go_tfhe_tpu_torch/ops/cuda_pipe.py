@@ -25,8 +25,9 @@ from ..params import TFHEParams
 from ..utils.torus import TORUS
 from . import _build
 from .blindrotate import mod_switch_2n
-from .cuda_t import (_EXTPROD_TN, _check, extprod_t_ref, launch_counts,
-                     rotate_decompose_t, rotate_decompose_t_ref)
+from .cuda_t import (_check, band_limb_drop, check_tile, extprod_t_ref,
+                     launch_counts, rotate_decompose_t,
+                     rotate_decompose_t_ref)
 from .rotate import monomial_mul
 
 
@@ -43,7 +44,8 @@ def pipe_step_ref(p: TFHEParams, digits_x: torch.Tensor, band: torch.Tensor,
     """Plain K9: plain K2 on half X, plain K1 on half Y.
 
     digits_x (2L*N, Bx) int8; band (2, 2L, 2N) int32; acc_x (2, N, Bx);
-    acc_y (2, N, By); amt_y (By,) int32 in [0, 2N].  Returns
+    acc_y (2, N, By); amt_y (By,) int32 in [0, 2N]; the band packed
+    without the profile's cuda_t.band_limb_drop key limbs.  Returns
     (acc_x + digits_x (*) band, digits of X^amt_y . acc_y - acc_y)."""
     _check_profile(p)
     return (extprod_t_ref(digits_x, band, acc_x),
@@ -63,10 +65,9 @@ def pipe_step(p: TFHEParams, digits_x: torch.Tensor, band: torch.Tensor,
     _, n, bx = acc_x.shape
     by = acc_y.shape[2]
     l2 = 2 * p.l
+    lo = band_limb_drop(p)
     dev = acc_x.device
-    if n % _EXTPROD_TN:
-        raise ValueError(f"pipe_step: N={n} is not a multiple of "
-                         f"{_EXTPROD_TN}")
+    check_tile("pipe_step", n, l2, lo)
     _check("digits_x", digits_x, torch.int8, (l2 * n, bx), dev)
     _check("band", band, TORUS, (2, l2, 2 * n), dev)
     _check("acc_x", acc_x, TORUS, (2, n, bx), dev)
@@ -80,7 +81,8 @@ def pipe_step(p: TFHEParams, digits_x: torch.Tensor, band: torch.Tensor,
             digits_x.data_ptr(), band.data_ptr(), acc_x.data_ptr(),
             out_x.data_ptr(), acc_y.data_ptr(), amt_y.data_ptr(),
             dig_y.data_ptr(), n, bx, by, p.l, p.bgbit,
-            p.decomposition_offset, torch.cuda.current_stream().cuda_stream)
+            p.decomposition_offset, lo,
+            torch.cuda.current_stream().cuda_stream)
     if rc:
         raise RuntimeError(f"pipe step kernel launch failed: CUDA error {rc}")
     launch_counts["pipe_step"] += 1

@@ -3,12 +3,13 @@ routing, and the engine's row-major extended route, against the JAX
 package (Pallas kernels in interpret mode).
 
 The port routes as the JAX package's TPU dispatch does
-(``engine._tpu_core_choice``): block-binary keys take the block rotation
-(K7 + K8) only with ``engine.PREFER_BLOCK_ROTATION``, else the per-bit
-path (K1 + K2).  (The JAX package's CPU backend always runs them through
-its portable block rotation.)  So each test names the JAX core it compares
-with: ``_bootstrap_core_block`` / ``blind_rotate_block[_tpu]`` with the
-flag on, ``_bootstrap_core`` with it off.  Tolerance is 0 throughout.
+(``engine._tpu_core_choice``): at N % 256 == 0 block-binary keys take the
+block rotation (K7 + K8) only with ``engine.PREFER_BLOCK_ROTATION``, else
+the per-bit path (K1 + K2); at other N (TEST_BLOCK's 128), where the JAX
+dispatch has no TPU core and runs its portable block rotation, they take
+the block rotation whatever the flag.  (The JAX package's CPU backend
+always runs them through its portable block rotation.)  So each test names
+the JAX function it compares with.  Tolerance is 0 throughout.
 """
 
 import dataclasses
@@ -200,14 +201,15 @@ def test_block_gates_match_jax_block_core(jx, block_engine, monkeypatch,
 
 
 def test_block_keys_flag_off_match_jax_per_bit_core(jx, block_engine):
-    """Flag off (the default): the same keys ride the per-bit path, bit
-    for bit the JAX ``_bootstrap_core``."""
+    """Flag off (the default) at TEST_BLOCK (N 128, which the TPU kernels
+    do not tile): the JAX dispatch takes its portable block rotation, so
+    the port takes the block rotation too, and ``gates.NAND`` equals the
+    JAX ``gates.NAND`` word for word."""
+    from go_tfhe_tpu import gates as jgates
     sk, ck, tck, ca, cb = block_engine
     assert not engine.PREFER_BLOCK_ROTATION
-    assert engine._route(tck) == "blind_rotate_t"
-    prep = jx.engine.prepare_nand(ca, cb)
-    want = np.asarray(jx.engine._bootstrap_core(
-        ck.params, True, ck.bsk_kernel, ck.ksk, prep, ck.testvec))
+    assert engine._route(tck) == "blind_rotate_block"
+    want = np.asarray(jgates.NAND(ck, ca, cb))
     got = gates.NAND(tck, _t(ca), _t(cb))
     np.testing.assert_array_equal(to_numpy_u32(got), want)
     np.testing.assert_array_equal(
@@ -286,7 +288,8 @@ def test_route_matches_tpu_core_choice(jx, monkeypatch, prefer_block):
     layouts its keygen builds (``_band_selection``) against transposed port
     keys, and JAX keys with only the row-major band against port keys with
     ``transposed=False``.  Profiles whose N the Pallas kernels do not tile
-    (N 128) are asked at N 256, where the JAX dispatch has a core."""
+    (N 128) are asked at N 256 on both sides, where the JAX dispatch has a
+    core (N 128 itself: the next test)."""
     from go_tfhe_tpu.keys import CloudKey as JCloudKey
     from go_tfhe_tpu.keys import _band_selection
     monkeypatch.setattr(jx.engine, "_use_tpu_path", lambda p: True)
@@ -297,9 +300,9 @@ def test_route_matches_tpu_core_choice(jx, monkeypatch, prefer_block):
         monkeypatch.setattr(jx.engine, "PREFER_PIPE", prefer_pipe)
         monkeypatch.setattr(engine, "PREFER_PIPE", prefer_pipe)
         for p in sorted(set(params.PROFILES.values()), key=lambda p: p.name):
+            if p.n % 256:
+                p = dataclasses.replace(p, n=256, nbit=8)
             jp = _jparams(jx, p)
-            if jp.n % 256:
-                jp = dataclasses.replace(jp, n=256, nbit=8)
             for block_binary in (False, True):
                 for transposed in (True, False):
                     row, rev = (_band_selection(jp, block_binary, "auto")
@@ -346,6 +349,46 @@ def test_route_matches_tpu_core_choice(jx, monkeypatch, prefer_block):
     assert ("128bit", False, True, True, "blind_rotate_pipe") in seen
     assert ("128bit_fast", True, True, True, "blind_rotate_block"
             if prefer_block else "blind_rotate_pipe") in seen
+
+
+_PER_BIT_ROUTES = {"blind_rotate_t", "blind_rotate_tpu", "blind_rotate_pipe"}
+
+
+@pytest.mark.parametrize("prefer_block", [False, True])
+def test_route_at_n128_matches_portable_choice(jx, monkeypatch,
+                                               prefer_block):
+    """At N 128 (TEST_BLOCK, TEST_FAST) the JAX TPU dispatch has no core
+    (``_use_tpu_path`` needs N % 256 == 0) and runs its portable cores:
+    ``_bootstrap_core_block`` for a block-binary key on a block_size > 1
+    profile, ``_bootstrap_core`` otherwise.  The port routes the first to
+    ``blind_rotate_block`` whatever the flags and keeps the others on a
+    per-bit rotation (bit-exact with the portable ``blind_rotate``)."""
+    from go_tfhe_tpu.keys import CloudKey as JCloudKey
+    monkeypatch.setattr(jx.engine, "_use_tpu_path", lambda p: p.n % 256 == 0)
+    monkeypatch.setattr(engine, "PREFER_BLOCK_ROTATION", prefer_block)
+    for prefer_pipe in (False, True):
+        monkeypatch.setattr(engine, "PREFER_PIPE", prefer_pipe)
+        for p in (params.TEST_BLOCK, params.TEST_FAST):
+            assert p.n == 128
+            for block_binary in (False, True):
+                jck = JCloudKey(testvec=None, ksk=None, bsk=None,
+                                bsk_kernel=None, bsk_band=object(),
+                                bsk_band_rev=object(),
+                                params=_jparams(jx, p),
+                                block_binary=block_binary)
+                assert jx.engine._tpu_core_choice(jck) is None
+                for transposed in (True, False):
+                    tck = keys.CloudKey(testvec=None, ksk=None, bsk=None,
+                                        bands=None, params=p,
+                                        block_binary=block_binary,
+                                        transposed=transposed)
+                    route = engine._route(tck)
+                    if block_binary and p.block_size > 1:
+                        assert route == "blind_rotate_block", (p.name,
+                                                               transposed)
+                    else:
+                        assert route in _PER_BIT_ROUTES, (p.name,
+                                                          block_binary)
 
 
 # ---------------------------------------------------------------------------

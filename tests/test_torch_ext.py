@@ -154,7 +154,7 @@ def test_rotate_decompose_ext_ref_matches_pallas(jx, shape):
 def test_extprod_ext_ref_matches_pallas(jx, shape):
     p = KERNEL_SHAPES[shape]
     k, nd = p.poly_extend_factor, p.digit_limbs
-    lo = p.kernel_limb_drop if nd == 1 else 0
+    lo = cuda_t.band_limb_drop(p)
     acc, amounts, bsk = _ext_inputs(p, 8, 2)
     jnp, pallas_t = jx.jnp, jx.pallas_t
     digits = np.asarray(pallas_t.rotate_decompose_ext_t(
@@ -394,20 +394,22 @@ def cuda_device():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b", [1, 8, 200])
+@pytest.mark.parametrize("b", [1, 3, 8, 127, 129, 200])
 @pytest.mark.parametrize("shape", sorted(KERNEL_SHAPES))
 def test_ext_kernels_match_plain_on_gpu(cuda_device, shape, b):
+    """K4 and K5 == their plain versions, ragged batches included, ``lo``
+    passed explicitly."""
     p = KERNEL_SHAPES[shape]
     k, nd = p.poly_extend_factor, p.digit_limbs
     acc, amounts, bsk = _ext_inputs(p, b, 7)
     acc_t = from_numpy_u32(acc, cuda_device)
     am_t = torch.from_numpy(amounts).to(cuda_device)
-    lo = p.kernel_limb_drop if nd == 1 else 0
+    lo = cuda_t.band_limb_drop(p)
     band = cuda_t.pack_bsk_band_t(from_numpy_u32(bsk, cuda_device),
                                   lo)[0].contiguous()
     before = dict(cuda_t.launch_counts)
     d = cuda_ext_t.rotate_decompose_ext_t(p, acc_t, am_t)
-    out = cuda_ext_t.extprod_ext_t(d, band, acc_t, k, nd)
+    out = cuda_ext_t.extprod_ext_t(d, band, acc_t, k, nd, lo)
     torch.cuda.synchronize()
     assert cuda_t.launch_counts["rotate_decompose_ext_t"] == \
         before["rotate_decompose_ext_t"] + 1
@@ -418,7 +420,26 @@ def test_ext_kernels_match_plain_on_gpu(cuda_device, shape, b):
         cuda_ext_t.rotate_decompose_ext_t_ref(p, acc_t, am_t).cpu().numpy())
     np.testing.assert_array_equal(
         to_numpy_u32(out),
-        to_numpy_u32(cuda_ext_t.extprod_ext_t_ref(d, band, acc_t, k, nd)))
+        to_numpy_u32(cuda_ext_t.extprod_ext_t_ref(d, band, acc_t, k, nd,
+                                                  lo)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [8, 130])
+def test_ext_extprod_extreme_operands_on_gpu(cuda_device, b):
+    """K5 at nd 3 with every digit limb and every balanced key limb -128
+    (band word 0x7F7F7F80): the largest s32 limb-pair sums, exact."""
+    p = EXT_WIDE
+    k, nd = p.poly_extend_factor, p.digit_limbs
+    band = torch.full((2, 2 * p.l, 2 * p.n), 0x7F7F7F80, dtype=torch.int64,
+                      device=cuda_device).to(torch.int32)
+    digits = torch.full((k * nd * 2 * p.l * p.n, b), -128, dtype=torch.int8,
+                        device=cuda_device)
+    acc = from_numpy_u32(_ext_inputs(p, b, 8)[0], cuda_device)
+    out = cuda_ext_t.extprod_ext_t(digits, band, acc, k, nd, 0)
+    np.testing.assert_array_equal(
+        to_numpy_u32(out),
+        to_numpy_u32(cuda_ext_t.extprod_ext_t_ref(digits, band, acc, k, nd)))
 
 
 @pytest.mark.gpu

@@ -61,10 +61,6 @@ def _jparams(jx, p):
     return jx.tfhe.TFHEParams(**dataclasses.asdict(p))
 
 
-def _lo(p):
-    return p.kernel_limb_drop if p.digit_limbs == 1 else 0
-
-
 def _u32(rng, shape):
     return rng.integers(0, 2 ** 32, shape, dtype=np.uint64).astype(np.uint32)
 
@@ -99,7 +95,7 @@ def test_extprod_ref_matches_pallas(jx, cfg, on_grid):
     acc, amounts, bsk = _inputs(p, 8, 2)
     if on_grid:
         bsk &= np.uint32(0xFFFFFF00)
-    lo, nd = _lo(p), p.digit_limbs
+    lo, nd = cuda_t.band_limb_drop(p), p.digit_limbs
     jnp, pallas_t = jx.jnp, jx.pallas_t
     digits = np.asarray(pallas_t.rotate_decompose_t(
         _jparams(jx, p), jnp.asarray(acc), jnp.asarray(amounts), tb=8))
@@ -183,18 +179,21 @@ def cuda_device():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b", [1, 8, 200])
+@pytest.mark.parametrize("b", [1, 3, 8, 127, 129, 200])
 @pytest.mark.parametrize("cfg", sorted(CONFIGS))
 def test_kernels_match_plain_on_gpu(cuda_device, cfg, b):
+    """K1 and K2 == their plain versions, ragged batches (B % 4 != 0, one
+    batch tile and a bit) included, ``lo`` passed explicitly."""
     p = CONFIGS[cfg]
+    lo, nd = cuda_t.band_limb_drop(p), p.digit_limbs
     acc, amounts, bsk = _inputs(p, b, 7)
     acc_t = from_numpy_u32(acc, cuda_device)
     am_t = torch.from_numpy(amounts).to(cuda_device)
     band = cuda_t.pack_bsk_band_t(from_numpy_u32(bsk, cuda_device),
-                                  _lo(p))[0].contiguous()
+                                  lo)[0].contiguous()
     before = dict(cuda_t.launch_counts)
     d = cuda_t.rotate_decompose_t(p, acc_t, am_t)
-    out = cuda_t.extprod_t(d, band, acc_t, p.digit_limbs)
+    out = cuda_t.extprod_t(d, band, acc_t, nd, lo)
     torch.cuda.synchronize()
     assert cuda_t.launch_counts["rotate_decompose_t"] == \
         before["rotate_decompose_t"] + 1
@@ -204,7 +203,28 @@ def test_kernels_match_plain_on_gpu(cuda_device, cfg, b):
         cuda_t.rotate_decompose_t_ref(p, acc_t, am_t).cpu().numpy())
     np.testing.assert_array_equal(
         to_numpy_u32(out),
-        to_numpy_u32(cuda_t.extprod_t_ref(d, band, acc_t, p.digit_limbs)))
+        to_numpy_u32(cuda_t.extprod_t_ref(d, band, acc_t, nd, lo)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [8, 130])
+@pytest.mark.parametrize("cfg", sorted(CONFIGS))
+def test_extprod_extreme_operands_on_gpu(cuda_device, cfg, b):
+    """Every digit limb -128 and every balanced key limb -128 (the band
+    word 0x7F7F7F80, or 0x7F7F8000 with limb 0 dropped): the largest s32
+    limb-pair sums of the tensor-core tile, exact."""
+    p = CONFIGS[cfg]
+    lo, nd = cuda_t.band_limb_drop(p), p.digit_limbs
+    word = 0x7F7F8000 if lo else 0x7F7F7F80
+    band = torch.full((2, 2 * p.l, 2 * p.n), word, dtype=torch.int64,
+                      device=cuda_device).to(torch.int32)
+    digits = torch.full((nd * 2 * p.l * p.n, b), -128, dtype=torch.int8,
+                        device=cuda_device)
+    acc = from_numpy_u32(_inputs(p, b, 8)[0], cuda_device)
+    out = cuda_t.extprod_t(digits, band, acc, nd, lo)
+    np.testing.assert_array_equal(
+        to_numpy_u32(out),
+        to_numpy_u32(cuda_t.extprod_t_ref(digits, band, acc, nd, lo)))
 
 
 @pytest.mark.gpu
