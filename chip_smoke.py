@@ -34,8 +34,8 @@ entry points a user calls:
 Before that it builds the nine Hopper kernels from
 ``go_tfhe_tpu_torch/csrc/`` and holds each against its plain PyTorch
 version (tolerance 0) at the paths' shapes, wide-digit shapes, ragged
-batches, the edge rotation amounts and (K2, K5) extreme operands, and
-times each (CUDA events), K2 and K5 beside their library form
+batches, the edge rotation amounts and (K2, K5, K8, K3) extreme operands,
+and times each (CUDA events), K2, K5 and K8 beside their library form
 (``torch._int_mm`` on int8 Toeplitz key limbs, ``library_ms``).
 Each path runs with the launch counters set to 0 just before it and read
 just after.
@@ -323,9 +323,7 @@ def extreme_case(dev, p, b: int, k: int) -> int:
     limb -128 (band word 0x7F7F7F80; 0x7F7F8000 with limb 0 dropped): the
     tile's largest s32 sums, against the plain version.  Returns max|err|."""
     nd, lo = p.digit_limbs, cuda_t.band_limb_drop(p)
-    word = 0x7F7F8000 if lo else 0x7F7F7F80
-    band = torch.full((2, 2 * p.l, 2 * p.n), word, dtype=torch.int64,
-                      device=dev).to(torch.int32)
+    band = extreme_band(dev, 2 * p.l, p.n, lo)
     digits = torch.full((k * nd * 2 * p.l * p.n, b), -128, dtype=torch.int8,
                         device=dev)
     acc = torch.zeros((2, k * p.n, b), dtype=torch.int32, device=dev)
@@ -408,14 +406,17 @@ def ext_kernels_against_plain(gen, dev, errs, times, lib):
               f"per call ({u6.name}, B={UINT6_BATCH})", flush=True)
 
 
-def rowmajor_kernels_against_plain(gen, dev, errs, times):
+def rowmajor_kernels_against_plain(gen, dev, errs, times, lib):
     """K6, K7 and K8 against their plain versions, exactly (tolerance 0):
     K6 at uint8_centered B 256 and 255 (amounts 0, kN, 2kN - 1, 2kN among
     them); K7 at 128bit_fast with bs 3 and 1, B 4096 and 4095 (amounts 0,
     N, 2N among them) and an nd = 3 shape; K8 on K7's digits (12 rows of a
-    block step, 4 of a tail step) and on K6's (uint8: B' = 9B, nd 3, 2
-    rows).  Adds to ``errs`` and ``times`` (K6 at uint8 B 256, K7 and K8
-    at the block step, B 4096) and returns the other shapes' times."""
+    block step, 4 of a tail step, lo 1) and on K6's (uint8: B' = 9B, nd 3,
+    2 rows, lo 0), and on extreme operands.  K8's library form
+    (cuda_extprod.extprod_mm), checked exact and timed at its three
+    shapes.  Adds to ``errs``, ``times`` and ``lib`` (K6 at uint8 B 256,
+    K7 and K8 at the block step, B 4096) and returns the other shapes'
+    times."""
     wide = params.TFHEParams(
         name="block_nd3", lwe_n=6, lwe_alpha=1.0 / (1 << 26), n=256,
         lv1_alpha=1.0 / (1 << 30), nbit=8, bgbit=18, l=1, basebit=4,
@@ -430,6 +431,16 @@ def rowmajor_kernels_against_plain(gen, dev, errs, times):
     def note(name, e):
         errs[name] = max(errs.get(name, 0), e)
 
+    def k8_library(what, digits, band, acc, nd, lo, want):
+        ms = library_time(lambda: cuda_extprod.extprod_mm(
+            digits, band, acc, nd, lo), want, f"extprod {what}")
+        key = cuda_extprod.key_columns_i8(band, lo, nd)
+        built = cuda_ms(lambda: cuda_extprod.extprod_mm(
+            digits, band, acc, nd, lo, key=key), 5)
+        print(f"   extprod {what} library form {ms:.4f} ms per call, "
+              f"{built:.4f} ms with its Toeplitz limbs built", flush=True)
+        return ms
+
     for b in (UINT8_BATCH, UINT8_BATCH - 1):
         k, n, nd = u8.poly_extend_factor, u8.n, u8.digit_limbs
         big = 2 * k * n
@@ -438,13 +449,15 @@ def rowmajor_kernels_against_plain(gen, dev, errs, times):
                           generator=gen)
         t[:4] = torch.tensor([big, 0, k * n, big - 1], dtype=torch.int32,
                              device=dev)
-        band = cuda_t.pack_bsk_band_t(rand_words((1, 2 * u8.l, 2, n)))[0]
+        lo = cuda_t.band_limb_drop(u8)
+        band = cuda_t.pack_bsk_band_t(rand_words((1, 2 * u8.l, 2, n)),
+                                      lo)[0]
         d_k = cuda_ext.rotate_decompose_ext(u8, acc, t)
         d_p = cuda_ext.rotate_decompose_ext_ref(u8, acc, t)
         digits = d_p.view(b * k, -1)
         acc_f = acc.view(2, b * k, n)
-        o_k = cuda_extprod.extprod(digits, band, acc_f, nd)
-        o_p = cuda_extprod.extprod_ref(digits, band, acc_f, nd)
+        o_k = cuda_extprod.extprod(digits, band, acc_f, nd, lo)
+        o_p = cuda_extprod.extprod_ref(digits, band, acc_f, nd, lo)
         torch.cuda.synchronize()
         e6, e8 = max_abs_err(d_k, d_p), max_abs_err(o_k, o_p)
         print(f"   {u8.name} B={b:5d} (B'={b * k})  K6 max|err| {e6}  "
@@ -460,10 +473,12 @@ def rowmajor_kernels_against_plain(gen, dev, errs, times):
                 cuda_ms(lambda: cuda_ext.rotate_decompose_ext_ref(u8, acc, t),
                         3))
             extra["extprod uint8 B'=2304"] = (
-                cuda_ms(lambda: cuda_extprod.extprod(digits, band, acc_f, nd),
-                        10),
+                cuda_ms(lambda: cuda_extprod.extprod(digits, band, acc_f, nd,
+                                                     lo), 10),
                 cuda_ms(lambda: cuda_extprod.extprod_ref(digits, band, acc_f,
-                                                         nd), 3))
+                                                         nd, lo), 3),
+                k8_library("uint8 B'=2304", digits, band, acc_f, nd, lo,
+                           o_p))
 
     for p, bs, b in ((fast, 3, BATCH), (fast, 3, BATCH - 1), (fast, 1, BATCH),
                      (fast, 1, BATCH - 1), (wide, 3, 256)):
@@ -482,8 +497,8 @@ def rowmajor_kernels_against_plain(gen, dev, errs, times):
                 if bs > 1 else bands[0])
         d_k = cuda_rotate.rotate_decompose(p, acc, amounts)
         d_p = cuda_rotate.rotate_decompose_ref(p, acc, amounts)
-        o_k = cuda_extprod.extprod(d_p, band, acc, nd)
-        o_p = cuda_extprod.extprod_ref(d_p, band, acc, nd)
+        o_k = cuda_extprod.extprod(d_p, band, acc, nd, lo)
+        o_p = cuda_extprod.extprod_ref(d_p, band, acc, nd, lo)
         torch.cuda.synchronize()
         e7, e8 = max_abs_err(d_k, d_p), max_abs_err(o_k, o_p)
         print(f"   {p.name:12s} bs={bs} B={b:5d} ({band.shape[1]:2d} rows)  "
@@ -497,14 +512,20 @@ def rowmajor_kernels_against_plain(gen, dev, errs, times):
                          20)
             pt = cuda_ms(lambda: cuda_rotate.rotate_decompose_ref(
                 p, acc, amounts), 3)
-            ke = cuda_ms(lambda: cuda_extprod.extprod(d_p, band, acc, nd), 10)
-            pe = cuda_ms(lambda: cuda_extprod.extprod_ref(d_p, band, acc, nd),
-                         3)
+            ke = cuda_ms(lambda: cuda_extprod.extprod(d_p, band, acc, nd, lo),
+                         10)
+            pe = cuda_ms(lambda: cuda_extprod.extprod_ref(d_p, band, acc, nd,
+                                                          lo), 3)
+            le = k8_library(f"{band.shape[1]} rows B={b}", d_p, band, acc,
+                            nd, lo, o_p)
             if bs == 3:
                 times["rotate_decompose"], times["extprod"] = (kt, pt), (ke, pe)
+                lib["extprod"] = le
             else:
-                extra["rotate_decompose bs=1 B=4096"] = (kt, pt)
-                extra["extprod 4 rows B=4096"] = (ke, pe)
+                extra["rotate_decompose bs=1 B=4096"] = (kt, pt, None)
+                extra["extprod 4 rows B=4096"] = (ke, pe, le)
+    e8 = extreme_rowmajor(dev)
+    note("extprod", e8)
     shown = {"rotate_decompose_ext": f"{u8.name}, B={UINT8_BATCH}",
              "rotate_decompose": f"{fast.name}, bs=3, B={BATCH}",
              "extprod": f"{fast.name}, 12 rows, B={BATCH}"}
@@ -512,16 +533,73 @@ def rowmajor_kernels_against_plain(gen, dev, errs, times):
         ms, plain_ms = times[name]
         print(f"   {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per "
               f"call ({where})", flush=True)
-    for name, (ms, plain_ms) in extra.items():
+    for name, (ms, plain_ms, _) in extra.items():
         print(f"   {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per "
               f"call", flush=True)
-    return {name: {"ms": ms, "plain_ms": plain_ms}
-            for name, (ms, plain_ms) in extra.items()}
+    return {name: {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms}
+            for name, (ms, plain_ms, lib_ms) in extra.items()}
+
+
+def extreme_band(dev, rows: int, n: int, lo: int) -> torch.Tensor:
+    """A band (2, rows, 2N) whose balanced key limbs above ``lo`` are all
+    -128: word 0x7F7F7F80, or 0x7F7F8000 with limb 0 dropped."""
+    return torch.full((2, rows, 2 * n), 0x7F7F8000 if lo else 0x7F7F7F80,
+                      dtype=torch.int64, device=dev).to(torch.int32)
+
+
+def extreme_rowmajor(dev) -> int:
+    """K8 with every digit limb -128 and every key limb -128 (the tile's
+    largest s32 sums) at the block step's 12 rows (lo 1), 128bit's 18 (lo
+    0) and uint8's nd 3 against the plain version.  Returns max|err|."""
+    worst = 0
+    for p, rows, b in ((params.P128_FAST, 12, 256), (params.P128, 18, 256),
+                       (params.UINT8_CENTERED, 2, 256)):
+        nd, lo = p.digit_limbs, cuda_t.band_limb_drop(p)
+        band = extreme_band(dev, rows, p.n, lo)
+        digits = torch.full((b, nd * rows * p.n), -128, dtype=torch.int8,
+                            device=dev)
+        acc = torch.zeros((2, b, p.n), dtype=torch.int32, device=dev)
+        err = max_abs_err(cuda_extprod.extprod(digits, band, acc, nd, lo),
+                          cuda_extprod.extprod_ref(digits, band, acc, nd, lo))
+        print(f"   {p.name:14s} B'={b:5d}  extreme operands ({rows} rows, "
+              f"nd {nd}, lo {lo}): K8 max|err| {err}", flush=True)
+        check(err == 0, f"K8 disagrees with its plain version on extreme "
+              f"operands at {p.name}")
+        worst = max(worst, err)
+    return worst
+
+
+def extreme_step(dev) -> int:
+    """K3 with every digit -128 and every key limb -128, lo 1 and 0, at
+    128bit_fast widths, B 256: amounts N, acc = (offset - 1 - s) / 2 (s its
+    parity), so that X^N acc - acc + offset = s has no digit bits.  Returns
+    max|err| against the plain version."""
+    worst = 0
+    fast = params.P128_FAST
+    for p in (fast, dataclasses.replace(fast, kernel_limb_drop=0)):
+        lo, off, b = cuda_t.band_limb_drop(p), p.decomposition_offset, 256
+        word = (off - 1 - (off - 1) % 2) // 2
+        acc = torch.full((2, b, p.n), word - (word >> 31 << 32),
+                         dtype=torch.int32, device=dev)
+        amounts = torch.full((b,), p.n, dtype=torch.int32, device=dev)
+        band = extreme_band(dev, 2 * p.l, p.n, lo)
+        check(int(cuda_rotate.rotate_decompose_ref(p, acc, amounts).max())
+              == -p.half_bg, "K3's extreme digits are not all -Bg/2")
+        err = max_abs_err(cuda_step.fused_rotate_step(p, acc, amounts, band),
+                          cuda_step.fused_rotate_step_ref(p, acc, amounts,
+                                                          band))
+        print(f"   {p.name:12s} B={b:5d}  extreme operands (lo {lo}): K3 "
+              f"max|err| {err}", flush=True)
+        check(err == 0, f"K3 disagrees with its plain version on extreme "
+              f"operands (lo {lo})")
+        worst = max(worst, err)
+    return worst
 
 
 def step_pipe_kernels_against_plain(gen, dev, errs, times):
     """K3 and K9 against their plain versions, exactly (tolerance 0): K3 at
-    128bit_fast B 4096 and 4095 and 128bit B 4096; K9 at 128bit_fast with
+    128bit_fast B 4096 and 4095 and 128bit B 4096, and on extreme operands
+    (:func:`extreme_step`); K9 at 128bit_fast with
     halves of 2048, with an odd half of 2047 on either side, and 128bit
     with halves of 2048; amounts 0, N, 2N - 1 and 2N among them.  Adds to
     ``errs`` and ``times`` (K3 at 128bit_fast B 4096, K9 at halves of
@@ -562,6 +640,8 @@ def step_pipe_kernels_against_plain(gen, dev, errs, times):
                         20),
                 cuda_ms(lambda: cuda_step.fused_rotate_step_ref(p, acc, am,
                                                                 bd), 3))
+    errs["fused_rotate_step"] = max(errs["fused_rotate_step"],
+                                    extreme_step(dev))
     h = PIPE_HALF
     for p, bx, by in ((fast, h, h), (fast, h, h - 1), (fast, h - 1, h),
                       (exact, h, h)):
@@ -857,7 +937,7 @@ def main() -> int:
     t0 = phase("3. kernels against their plain versions")
     errs, times, lib = kernels_against_plain(gen, dev)
     ext_kernels_against_plain(gen, dev, errs, times, lib)
-    shape_times = rowmajor_kernels_against_plain(gen, dev, errs, times)
+    shape_times = rowmajor_kernels_against_plain(gen, dev, errs, times, lib)
     step_pipe_kernels_against_plain(gen, dev, errs, times)
     done(t0)
 

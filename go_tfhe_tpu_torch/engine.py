@@ -70,11 +70,12 @@ _T_QUARTER = i32(int(f64_to_torus(0.25)))
 # package (go_tfhe_tpu/engine.py:43-50), whose reason is a TPU measurement:
 # there the per-bit transposed path beat the block kernel (8,205 vs 7,886
 # gates/s at 128bit_fast), the block kernel's launch-count advantage no
-# longer paying for its costlier rotation.  On an H100 at 700 W the
-# per-bit path is ahead too, since its product runs on the tensor cores
-# and the block path's does not yet (6,771 vs 2,223 gates/s on the same
-# block-binary keys, batch 4096; PERF.md).  The block path stays served
-# and tested; set this True to take it.
+# longer paying for its costlier rotation.  On an H100 at 700 W it is the
+# other way round since both products run on the s8 tensor cores: the
+# block path takes a third of the steps and its K8 needs no digit
+# transposition (11,573 vs 6,903 gates/s on the same block-binary keys,
+# batch 4096; PERF.md).  The default stays the JAX package's; set this
+# True to take the block path.
 PREFER_BLOCK_ROTATION = False
 
 # Route transposed keys on single-limb-digit profiles through the

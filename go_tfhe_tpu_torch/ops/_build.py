@@ -52,10 +52,11 @@ _SIGNATURES = {
                         _P),
     # acc, amounts, out, n, b, bs, l, bgbit, offset, nd, stream
     "tfhe_rotdec": (_P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_uint32, _I, _P),
-    # digits, band, acc, out, n, b', rows, nd, stream
-    "tfhe_extprod": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # acc, amounts, band, out, n, b, l, bgbit, offset, stream
-    "tfhe_fused_step": (_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_uint32, _P),
+    # digits, band, acc, out, n, b', rows, nd, lo, stream
+    "tfhe_extprod": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # acc, amounts, band, out, n, b, l, bgbit, offset, lo, stream
+    "tfhe_fused_step": (_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_uint32, _I,
+                        _P),
     # digits_x, band, acc_x, out_x, acc_y, amt_y, dig_y, n, bx, by, l,
     # bgbit, offset, lo, stream
     "tfhe_pipe_step": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

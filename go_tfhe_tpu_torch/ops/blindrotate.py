@@ -50,7 +50,10 @@ from .rotate import monomial_mul, monomial_mul_blocks
 # K7 + K8.  Off by default, as in the JAX package
 # (go_tfhe_tpu/ops/blindrotate.py:39-47), whose reason is a TPU
 # measurement: Mosaic ran the fused kernel's rotation and contraction one
-# after the other.  The H100's numbers for both are in PERF.md.
+# after the other.  On an H100 the unfused step is ahead too (K7 + K8
+# 10,953 vs K3 3,344 gates/s at 128bit_fast, batch 4096; PERF.md): K3
+# recomputes a batch tile's digits in each of the 2*N/64 blocks that read
+# it.
 FUSED_STEP = False
 
 
@@ -155,6 +158,7 @@ def blind_rotate_extended_rm(p: TFHEParams, bands: torch.Tensor,
                           else rotate_decompose_ext)
     contract = extprod_ref if plain else extprod
     n_lwe, k, n, nd = p.lwe_n, p.poly_extend_factor, p.n, p.digit_limbs
+    lo = band_limb_drop(p)
     big = 2 * k * n
     b = ct.shape[0]
     b_tilda = big - mod_switch_general(ct[:, n_lwe], big)           # (B,)
@@ -165,7 +169,7 @@ def blind_rotate_extended_rm(p: TFHEParams, bands: torch.Tensor,
     for i in range(n_lwe):
         digits = rotate_decompose_e(p, acc, a_tilda[i])
         acc = contract(digits.view(b * k, -1), bands[i],
-                       acc.view(2, b * k, n), nd).view(2, b, k * n)
+                       acc.view(2, b * k, n), nd, lo).view(2, b, k * n)
     return acc.view(2, b, k, n).permute(1, 2, 0, 3).contiguous()
 
 
@@ -210,6 +214,7 @@ def blind_rotate_block(p: TFHEParams, bands: torch.Tensor, ct: torch.Tensor,
     rotate = rotate_decompose_ref if plain else rotate_decompose
     contract = extprod_ref if plain else extprod
     n_lwe, bs, nd = p.lwe_n, p.block_size, p.digit_limbs
+    lo = band_limb_drop(p)
     full, rem = divmod(n_lwe, bs)
     b = ct.shape[0]
     b_tilda = 2 * p.n - mod_switch_2n(ct[:, n_lwe], p)             # (B,)
@@ -220,10 +225,10 @@ def blind_rotate_block(p: TFHEParams, bands: torch.Tensor, ct: torch.Tensor,
     band_blk = block_bands(p, bands)
     for i in range(full):
         digits = rotate(p, acc, a_blk[i])
-        acc = contract(digits, band_blk[i], acc, nd)
+        acc = contract(digits, band_blk[i], acc, nd, lo)
     for idx in range(full * bs, n_lwe):                # ragged tail, per bit
         digits = rotate(p, acc, a_tilda[idx])
-        acc = contract(digits, bands[idx], acc, nd)
+        acc = contract(digits, bands[idx], acc, nd, lo)
     return acc.transpose(0, 1).contiguous()                         # (B, 2, N)
 
 
@@ -247,7 +252,7 @@ def blind_rotate_tpu(p: TFHEParams, bands: torch.Tensor, ct: torch.Tensor,
     step = fused_rotate_step_ref if plain else fused_rotate_step
     rotate = rotate_decompose_ref if plain else rotate_decompose
     contract = extprod_ref if plain else extprod
-    n_lwe, nd = p.lwe_n, p.digit_limbs
+    n_lwe, nd, lo = p.lwe_n, p.digit_limbs, band_limb_drop(p)
     int8_ok = 2 * p.l * p.n * min(p.half_bg, 128) * 128 < 1 << 31
     fused = FUSED_STEP and p.digits_fit_int8 and int8_ok
     b = ct.shape[0]
@@ -259,5 +264,6 @@ def blind_rotate_tpu(p: TFHEParams, bands: torch.Tensor, ct: torch.Tensor,
         if fused:
             acc = step(p, acc, a_tilda[i], bands[i])
         else:
-            acc = contract(rotate(p, acc, a_tilda[i]), bands[i], acc, nd)
+            acc = contract(rotate(p, acc, a_tilda[i]), bands[i], acc, nd,
+                           lo)
     return acc.transpose(0, 1).contiguous()                         # (B, 2, N)

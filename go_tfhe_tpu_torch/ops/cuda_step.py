@@ -13,9 +13,10 @@ Layouts (the JAX package's, words as int32):
 Int8-digit profiles only (one digit limb, half_bg <= 128), as the TPU
 kernel asserts (pallas_step.py:158).
 
-:func:`fused_rotate_step` launches ``csrc/step.cu`` on CUDA tensors and
-runs :func:`fused_rotate_step_ref` on CPU tensors; each launch adds one to
-``cuda_t.launch_counts["fused_rotate_step"]``.
+:func:`fused_rotate_step` launches ``csrc/step.cu`` (the tensor-core tile
+of ``csrc/extprod_tile.cuh`` with the rotation in its digit staging) on
+CUDA tensors and runs :func:`fused_rotate_step_ref` on CPU tensors; each
+launch adds one to ``cuda_t.launch_counts["fused_rotate_step"]``.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from ..utils.torus import TORUS
 from . import _build
 from .cuda_extprod import extprod_ref
 from .cuda_rotate import rotate_decompose_ref
-from .cuda_t import _EXTPROD_TN, _check, launch_counts
+from .cuda_t import _check, band_limb_drop, check_tile, launch_counts
 
 
 def _check_profile(p: TFHEParams) -> None:
@@ -51,19 +52,18 @@ def fused_rotate_step_ref(p: TFHEParams, acc: torch.Tensor,
 
 def fused_rotate_step(p: TFHEParams, acc: torch.Tensor, amounts: torch.Tensor,
                       band: torch.Tensor) -> torch.Tensor:
-    """K3 (replaces pallas_step.fused_rotate_step): see the ref's contract.
-    Returns a new (2, B, N) tensor; ``acc`` is not modified (the TPU kernel
-    aliases it: pallas_step.py:200).  Out of place because each block of
-    the kernel reads whole accumulator rows for its rotations while other
-    blocks write the same rows."""
+    """K3 (replaces pallas_step.fused_rotate_step): see the ref's contract;
+    ``band`` packed without the profile's cuda_t.band_limb_drop key limbs
+    (the kernel skips them).  Returns a new (2, B, N) tensor; ``acc`` is
+    not modified (the TPU kernel aliases it: pallas_step.py:200).  Out of
+    place because each block of the kernel reads whole accumulator rows for
+    its rotations while other blocks write the same rows."""
     if acc.device.type == "cpu":
         return fused_rotate_step_ref(p, acc, amounts, band)
     _check_profile(p)
     _, b, n = acc.shape
-    l2 = 2 * p.l
-    if n % _EXTPROD_TN:
-        raise ValueError(f"fused_rotate_step: N={n} is not a multiple of "
-                         f"{_EXTPROD_TN}")
+    l2, lo = 2 * p.l, band_limb_drop(p)
+    check_tile("fused_rotate_step", n, l2, lo)
     _check("acc", acc, TORUS, (2, b, n), acc.device)
     _check("amounts", amounts, torch.int32, (b,), acc.device)
     _check("band", band, TORUS, (2, l2, 2 * n), acc.device)
@@ -74,7 +74,7 @@ def fused_rotate_step(p: TFHEParams, acc: torch.Tensor, amounts: torch.Tensor,
     with torch.cuda.device(acc.device):
         rc = lib.tfhe_fused_step(
             acc.data_ptr(), amounts.data_ptr(), band.data_ptr(),
-            out.data_ptr(), n, b, p.l, p.bgbit, p.decomposition_offset,
+            out.data_ptr(), n, b, p.l, p.bgbit, p.decomposition_offset, lo,
             torch.cuda.current_stream().cuda_stream)
     if rc:
         raise RuntimeError(f"fused step kernel launch failed: CUDA error {rc}")

@@ -177,16 +177,17 @@ def extprod_t(digits: torch.Tensor, band: torch.Tensor, acc: torch.Tensor,
     return out
 
 
-def check_tile(name: str, n: int, l2: int, lo: int) -> None:
+def check_tile(name: str, n: int, rows: int, lo: int) -> None:
     """What extprod_tile.cuh takes: N a multiple of its TN, ``lo`` 0 or 1,
-    and l2*N < 2^15, so that no s32 sum of a limb-pair weight (at most 4
-    pairs x l2*N products of magnitude <= 2^14) can overflow."""
+    and rows*N < 2^15 for the band rows it contracts (2L, or bs*2L in a
+    block step), so that no s32 sum of a limb-pair weight (at most 4 pairs
+    x rows*N products of magnitude <= 2^14) can overflow."""
     if n % _EXTPROD_TN:
         raise ValueError(f"{name}: N={n} is not a multiple of {_EXTPROD_TN}")
     if lo not in (0, 1):
         raise ValueError(f"{name}: lo={lo}; the kernel skips 0 or 1 key limbs")
-    if 4 * l2 * n * (1 << 14) >= 1 << 31:
-        raise ValueError(f"{name}: 2L*N = {l2 * n} terms could overflow the "
+    if 4 * rows * n * (1 << 14) >= 1 << 31:
+        raise ValueError(f"{name}: R*N = {rows * n} terms could overflow the "
                          "kernel's s32 limb-pair sums (needs < 2^15)")
 
 

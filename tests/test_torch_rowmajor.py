@@ -334,9 +334,9 @@ def test_k7_k8_match_plain_on_gpu(cuda_device, shape, bs, b):
     acc, amounts = _k7_inputs(p, bs, b, 11)
     acc_t = _t(acc, cuda_device)
     am_t = torch.from_numpy(amounts).to(cuda_device)
+    lo = cuda_t.band_limb_drop(p)
     bsk = _u32(np.random.default_rng(11), (bs, 2 * p.l, 2, p.n))
-    bands = cuda_t.pack_bsk_band_t(_t(bsk, cuda_device),
-                                   p.kernel_limb_drop if nd == 1 else 0)
+    bands = cuda_t.pack_bsk_band_t(_t(bsk, cuda_device), lo)
     band = block_bands(dataclasses.replace(p, lwe_n=bs, block_size=bs),
                        bands)[0] if bs > 1 else bands[0]
     d = _gpu_step(cuda_rotate.rotate_decompose, "rotate_decompose", p,
@@ -344,10 +344,10 @@ def test_k7_k8_match_plain_on_gpu(cuda_device, shape, bs, b):
     np.testing.assert_array_equal(
         d.cpu().numpy(),
         cuda_rotate.rotate_decompose_ref(p, acc_t, am_t).cpu().numpy())
-    out = _gpu_step(cuda_extprod.extprod, "extprod", d, band, acc_t, nd)
+    out = _gpu_step(cuda_extprod.extprod, "extprod", d, band, acc_t, nd, lo)
     np.testing.assert_array_equal(
         to_numpy_u32(out),
-        to_numpy_u32(cuda_extprod.extprod_ref(d, band, acc_t, nd)))
+        to_numpy_u32(cuda_extprod.extprod_ref(d, band, acc_t, nd, lo)))
 
 
 @pytest.mark.gpu
