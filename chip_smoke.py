@@ -35,8 +35,10 @@ Before that it builds the nine Hopper kernels from
 ``go_tfhe_tpu_torch/csrc/`` and holds each against its plain PyTorch
 version (tolerance 0) at the paths' shapes, wide-digit shapes, ragged
 batches, the edge rotation amounts and (K2, K5, K8, K3) extreme operands,
-and times each (CUDA events), K2, K5 and K8 beside their library form
-(``torch._int_mm`` on int8 Toeplitz key limbs, ``library_ms``).
+and times each (CUDA events; K1 and K4, whose calls are shorter than
+their host launch cost, replayed from a CUDA graph, with their eager loop
+beside it), K2, K5 and K8 beside their library form (``torch._int_mm`` on
+int8 Toeplitz key limbs, ``library_ms``).
 Each path runs with the launch counters set to 0 just before it and read
 just after.
 
@@ -64,6 +66,7 @@ from go_tfhe_tpu_torch.ops import (_build, blindrotate, cuda_ext, cuda_ext_t,
                                    cuda_extprod, cuda_pipe, cuda_rotate,
                                    cuda_step, cuda_t)
 from go_tfhe_tpu_torch.ops.blindrotate import block_bands
+from rotdec_times import graph_ms
 
 BATCH = 4096
 PLAIN_CHECK = 32
@@ -116,6 +119,24 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def cold_ms(fn, reps: int) -> float:
+    """Mean device time of one fn() call after reading a 100 MB buffer,
+    which evicts its inputs from the 50 MB L2 (CUDA events around each
+    call)."""
+    flush = torch.ones(100 << 20, dtype=torch.uint8, device="cuda")
+    total = 0.0
+    for _ in range(reps):
+        flush.sum()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
 def profile_batch(label: str, fn) -> None:
     """With --profile: one more call of fn (a warm batch of a path) under
     torch.profiler; prints the wall time, the kernel time by name (self
@@ -145,7 +166,7 @@ def profile_batch(label: str, fn) -> None:
           f"{kernel_ms:.1f} ms, idle {1 - kernel_ms / wall_ms:.4f}",
           flush=True)
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]
-                                )[:5]:
+                                )[:8]:
         print(f"     {ms:9.1f} ms {n:6d} x  {name[:90]}", flush=True)
 
 
@@ -248,19 +269,25 @@ def library_time(fn, want: torch.Tensor, what: str) -> float:
     return cuda_ms(fn, 5)
 
 
-def kernels_against_plain(gen, dev):
+def kernels_against_plain(gen, dev, shape_times):
     """K1 and K2 against their plain versions, exactly (tolerance 0), at
-    the main path's shapes, a wide-digit shape, ragged batches (B 1, 3,
-    127, 129, 4095) and, for K2, extreme operands (every digit limb and
-    every key limb -128, lo 0 and 1).  Returns ({kernel: max_abs_err},
-    {kernel: (ms, plain_ms)}, {kernel: library_ms})."""
+    the main path's shapes, 128bit (l 3), a wide-digit shape (nd 3, N 256),
+    the uint4 shape (nd 3, N 2048), ragged batches (B 1, 3, 15, 16, 17,
+    127, 129, 2049, 4095; K1's tiles hold 16) with amounts 0, N and 2N
+    among them, and, for K2, extreme operands (every digit limb and every
+    key limb -128, lo 0 and 1).  K1 is timed in a CUDA graph at
+    128bit_fast B 4096, and in ``shape_times`` there in an eager loop and
+    with its input evicted from L2, and at 128bit B 4096 and uint4 B 2048.
+    Returns ({kernel: max_abs_err}, {kernel: (ms, plain_ms)}, {kernel:
+    library_ms})."""
     wide = params.TFHEParams(
         name="wide_nd3", lwe_n=4, lwe_alpha=1.0 / (1 << 26), n=256,
         lv1_alpha=1.0 / (1 << 30), nbit=8, bgbit=18, l=1, basebit=4,
         iks_t=6, block_size=1, message_modulus=8)
-    fast, exact = params.P128_FAST, params.P128
-    cases = [(fast, BATCH), (exact, BATCH), (wide, 256), (fast, 1),
-             (fast, 3), (fast, 127), (fast, 129), (fast, BATCH - 1)]
+    fast, exact, u4 = params.P128_FAST, params.P128, params.UINT4
+    cases = [(fast, BATCH), (exact, BATCH), (wide, 256), (u4, 2048),
+             (fast, 1), (fast, 3), (fast, 15), (fast, 16), (fast, 17),
+             (fast, 127), (fast, 129), (u4, 2049), (fast, BATCH - 1)]
     errs = dict.fromkeys(cuda_t.launch_counts, 0)
     times, lib = {}, {}
     for p, b in cases:
@@ -270,7 +297,7 @@ def kernels_against_plain(gen, dev):
                             device=dev, generator=gen)
         amounts = torch.randint(0, 2 * n + 1, (b,), dtype=torch.int32,
                                 device=dev, generator=gen)
-        amounts[: min(b, 2)] = torch.tensor([2 * n, 0][: min(b, 2)],
+        amounts[: min(b, 3)] = torch.tensor([2 * n, 0, n][: min(b, 3)],
                                             dtype=torch.int32, device=dev)
         bsk = torch.randint(-2 ** 31, 2 ** 31, (1, 2 * p.l, 2, n),
                             dtype=torch.int32, device=dev, generator=gen)
@@ -290,12 +317,16 @@ def kernels_against_plain(gen, dev):
               f"kernel disagrees with its plain version at {p.name} B={b}")
         errs["rotate_decompose_t"] = max(errs["rotate_decompose_t"], e1)
         errs["extprod_t"] = max(errs["extprod_t"], e2)
+        k1 = lambda: cuda_t.rotate_decompose_t(p, acc, amounts)
+        k1_plain_ms = lambda: cuda_ms(
+            lambda: cuda_t.rotate_decompose_t_ref(p, acc, amounts), 3)
         if p is fast and b == BATCH:
-            times["rotate_decompose_t"] = (
-                cuda_ms(lambda: cuda_t.rotate_decompose_t(p, acc, amounts),
-                        20),
-                cuda_ms(lambda: cuda_t.rotate_decompose_t_ref(p, acc,
-                                                              amounts), 3))
+            times["rotate_decompose_t"] = (graph_ms(k1, 20), k1_plain_ms())
+            for what, ms in (("eager loop", cuda_ms(k1, 20)),
+                             ("L2 evicted", cold_ms(k1, 10))):
+                shape_times[f"rotate_decompose_t {p.name} B={b}, {what}"] = {
+                    "ms": ms, "plain_ms": times["rotate_decompose_t"][1],
+                    "library_ms": None}
             times["extprod_t"] = (
                 cuda_ms(lambda: cuda_t.extprod_t(d_p, band, acc, nd, lo), 20),
                 cuda_ms(lambda: cuda_t.extprod_t_ref(d_p, band, acc, nd, lo),
@@ -309,6 +340,10 @@ def kernels_against_plain(gen, dev):
             print(f"   extprod_t library form {lib['extprod_t']:.4f} ms per "
                   f"call, {gemm_ms:.4f} ms with its Toeplitz limbs built",
                   flush=True)
+        elif (p is exact and b == BATCH) or (p is u4 and b == 2048):
+            shape_times[f"rotate_decompose_t {p.name} B={b}"] = {
+                "ms": graph_ms(k1, 20), "plain_ms": k1_plain_ms(),
+                "library_ms": None}
     for p in (exact, fast):        # lo 0 and 1
         e2 = extreme_case(dev, p, 256, 1)
         errs["extprod_t"] = max(errs["extprod_t"], e2)
@@ -341,18 +376,23 @@ def extreme_case(dev, p, b: int, k: int) -> int:
     return err
 
 
-def ext_kernels_against_plain(gen, dev, errs, times, lib):
+def ext_kernels_against_plain(gen, dev, errs, times, lib, shape_times):
     """K4 and K5 against their plain versions, exactly (tolerance 0), at
     the extended paths' shapes (uint6 B 2048, uint7 B 256), a k = 3,
-    nd = 3 shape at N 256, ragged batches and, for K5, extreme operands at
-    uint6 widths; the amounts include 0, kN, 2kN - 1 and 2kN.  Adds to
-    ``errs``, ``times`` and ``lib`` (K5's library form at uint6 B 2048)."""
+    nd = 3 shape at N 256, ragged batches (B 1, 3, 4, 5, 7, 9, 2047: B %
+    4 == 0 takes K4's two passes with tiles of 4, other B one pass with
+    tiles of 8 at uint6, 4 at uint7, 32 at N 256) and, for K5, extreme
+    operands at uint6 widths; the amounts include 0, kN, 2kN - 1 and 2kN.
+    K4 is timed in a CUDA graph at uint6 B 2048, and in ``shape_times``
+    there in an eager loop and at uint7 B 256.  Adds to ``errs``,
+    ``times`` and ``lib`` (K5's library form at uint6 B 2048)."""
     wide = params.TFHEParams(
         name="ext3_nd3", lwe_n=6, lwe_alpha=1.0 / (1 << 28), n=256,
         lv1_alpha=1.0 / (1 << 31), nbit=8, bgbit=18, l=1, basebit=4,
         iks_t=6, block_size=1, message_modulus=8, poly_extend_factor=3)
     u6, u7 = params.UINT6_CENTERED, params.UINT7_CENTERED
     cases = [(u6, UINT6_BATCH), (u7, UINT7_BATCH), (wide, 256), (u6, 1),
+             (u6, 3), (u6, 4), (u6, 5), (u7, 7), (wide, 9),
              (u6, UINT6_BATCH - 1)]
     for p, b in cases:
         k, n, nd = p.poly_extend_factor, p.n, p.digit_limbs
@@ -382,12 +422,16 @@ def ext_kernels_against_plain(gen, dev, errs, times, lib):
         errs["rotate_decompose_ext_t"] = max(errs["rotate_decompose_ext_t"],
                                              e4)
         errs["extprod_ext_t"] = max(errs["extprod_ext_t"], e5)
+        k4 = lambda: cuda_ext_t.rotate_decompose_ext_t(p, acc, amounts)
+        k4_plain_ms = lambda: cuda_ms(
+            lambda: cuda_ext_t.rotate_decompose_ext_t_ref(p, acc, amounts), 3)
         if p is u6 and b == UINT6_BATCH:
-            times["rotate_decompose_ext_t"] = (
-                cuda_ms(lambda: cuda_ext_t.rotate_decompose_ext_t(
-                    p, acc, amounts), 20),
-                cuda_ms(lambda: cuda_ext_t.rotate_decompose_ext_t_ref(
-                    p, acc, amounts), 3))
+            times["rotate_decompose_ext_t"] = (graph_ms(k4, 20),
+                                               k4_plain_ms())
+            shape_times[f"rotate_decompose_ext_t {p.name} B={b}, eager "
+                        f"loop"] = {
+                "ms": cuda_ms(k4, 20), "plain_ms": times[
+                    "rotate_decompose_ext_t"][1], "library_ms": None}
             times["extprod_ext_t"] = (
                 cuda_ms(lambda: cuda_ext_t.extprod_ext_t(d_p, band, acc, k,
                                                          nd, lo), 10),
@@ -398,6 +442,10 @@ def ext_kernels_against_plain(gen, dev, errs, times, lib):
                                                     lo), o_p, "extprod_ext_t")
             print(f"   extprod_ext_t library form "
                   f"{lib['extprod_ext_t']:.4f} ms per call", flush=True)
+        elif p is u7 and b == UINT7_BATCH:
+            shape_times[f"rotate_decompose_ext_t {p.name} B={b}"] = {
+                "ms": graph_ms(k4, 20), "plain_ms": k4_plain_ms(),
+                "library_ms": None}
     e5 = extreme_case(dev, u6, 256, u6.poly_extend_factor)
     errs["extprod_ext_t"] = max(errs["extprod_ext_t"], e5)
     for name in K4K5:
@@ -935,9 +983,11 @@ def main() -> int:
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     t0 = phase("3. kernels against their plain versions")
-    errs, times, lib = kernels_against_plain(gen, dev)
-    ext_kernels_against_plain(gen, dev, errs, times, lib)
-    shape_times = rowmajor_kernels_against_plain(gen, dev, errs, times, lib)
+    shape_times = {}
+    errs, times, lib = kernels_against_plain(gen, dev, shape_times)
+    ext_kernels_against_plain(gen, dev, errs, times, lib, shape_times)
+    shape_times.update(rowmajor_kernels_against_plain(gen, dev, errs, times,
+                                                      lib))
     step_pipe_kernels_against_plain(gen, dev, errs, times)
     done(t0)
 
@@ -1132,7 +1182,23 @@ def main() -> int:
             "max_abs_err": errs[name], "ms": times[name][0],
             "plain_ms": times[name][1], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": lib.get(name)})
-    shape_bounds = {"rotate_decompose bs=1 B=4096": ("rotate_decompose",
+    shape_bounds = {f"rotate_decompose_t {p.name} B={BATCH}, eager loop": (
+                        "rotate_decompose_t", p, BATCH, 0),
+                    f"rotate_decompose_t {p.name} B={BATCH}, L2 evicted": (
+                        "rotate_decompose_t", p, BATCH, 0),
+                    f"rotate_decompose_t {params.P128.name} B={BATCH}": (
+                        "rotate_decompose_t", params.P128, BATCH, 0),
+                    f"rotate_decompose_t {params.UINT4.name} B=2048": (
+                        "rotate_decompose_t", params.UINT4, 2048, 0),
+                    f"rotate_decompose_ext_t {params.UINT6_CENTERED.name} "
+                    f"B={UINT6_BATCH}, eager loop": (
+                        "rotate_decompose_ext_t", params.UINT6_CENTERED,
+                        UINT6_BATCH, 0),
+                    f"rotate_decompose_ext_t {params.UINT7_CENTERED.name} "
+                    f"B={UINT7_BATCH}": ("rotate_decompose_ext_t",
+                                         params.UINT7_CENTERED, UINT7_BATCH,
+                                         0),
+                    "rotate_decompose bs=1 B=4096": ("rotate_decompose",
                                                      p, BATCH, 4),
                     "extprod 4 rows B=4096": ("extprod", p, BATCH, 4),
                     "extprod uint8 B'=2304": ("extprod", u8p, UINT8_BATCH,

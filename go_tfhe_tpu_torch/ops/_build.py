@@ -30,7 +30,7 @@ BUILD_DIR = os.path.join(_PKG, "build")
 SOURCES = ("rotdec_t.cu", "extprod_t.cu", "rotdec_ext_t.cu",
            "extprod_ext_t.cu", "rotdec_ext.cu", "rotdec.cu", "extprod.cu",
            "step.cu", "pipe.cu")
-HEADERS = ("extprod_tile.cuh",)
+HEADERS = ("extprod_tile.cuh", "rotdec_col.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -38,13 +38,13 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # acc, amounts, out, n, b, l, bgbit, offset, nd, stream
-    "tfhe_rotdec_t": (_P, _P, _P, _I, _I, _I, _I, ctypes.c_uint32, _I, _P),
+    # acc, amounts, out, n, b, l, bgbit, offset, nd, tb, stream
+    "tfhe_rotdec_t": (_P, _P, _P, _I, _I, _I, _I, ctypes.c_uint32, _I, _I, _P),
     # digits, band, acc, out, n, b, l2, nd, lo, stream
     "tfhe_extprod_t": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # acc, amounts, out, n, k, b, l, bgbit, offset, nd, stream
-    "tfhe_rotdec_ext_t": (_P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_uint32,
-                          _I, _P),
+    # acc, amounts, out, scratch, n, k, b, l, bgbit, offset, nd, tb, stream
+    "tfhe_rotdec_ext_t": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          ctypes.c_uint32, _I, _I, _P),
     # digits, band, acc, out, n, k, b, l2, nd, lo, stream
     "tfhe_extprod_ext_t": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # acc, amounts, out, n, k, b, l, bgbit, offset, nd, stream

@@ -34,7 +34,8 @@ import torch
 from ..params import TFHEParams
 from ..utils.torus import TORUS
 from . import _build
-from .cuda_t import (_check, check_tile, extprod_t_mm, extprod_t_ref,
+from .cuda_t import (_TILE_WIDTHS, SMEM_LIMIT, RotdecPlan, _check,
+                     check_tile, column_plan, extprod_t_mm, extprod_t_ref,
                      launch_counts)
 from .decompose import gadget_decompose
 from .polymul import split_signed_limbs_i8
@@ -79,6 +80,21 @@ def rotate_decompose_ext_t_ref(p: TFHEParams, acc: torch.Tensor,
         k * nd * 2 * p.l * n, b).contiguous()
 
 
+def rotdec_ext_t_plan(n: int, k: int, b: int) -> RotdecPlan:
+    """K4's launch: a block stages one channel of a tile, the whole k*N-row
+    column.  Where B % 4 == 0 (and N % 32 == 0): two passes, tiles of 4
+    ciphertexts (64 KB at uint6, 128 KB at uint7 a block) whose digits go
+    to a scratch buffer in 128-byte runs, then one more kernel writes the
+    digit rows.  Else one pass with the widest tile that fits, writing tb
+    bytes of each digit row a block."""
+    name, rows = "rotate_decompose_ext_t", k * n
+    if b % 4 == 0 and n % 32 == 0:
+        return column_plan(name, rows, n, b, 4, True)
+    tb = max([w for w in _TILE_WIDTHS if n % (32 // w) == 0
+              and 4 * (rows + k) * w <= SMEM_LIMIT], default=4)
+    return column_plan(name, rows, n, b, tb)
+
+
 def rotate_decompose_ext_t(p: TFHEParams, acc: torch.Tensor,
                            amounts: torch.Tensor) -> torch.Tensor:
     """K4 (replaces pallas_t.rotate_decompose_ext_t): see the ref's
@@ -89,13 +105,16 @@ def rotate_decompose_ext_t(p: TFHEParams, acc: torch.Tensor,
     b = acc.shape[2]
     _check("acc", acc, TORUS, (2, k * n, b), acc.device)
     _check("amounts", amounts, torch.int32, (b,), acc.device)
+    plan = rotdec_ext_t_plan(n, k, b)
     out = torch.empty((k * nd * 2 * p.l * n, b), dtype=torch.int8,
                       device=acc.device)
+    scratch = torch.empty_like(out) if plan.two_pass else None
     lib = _build.load_library()
     with torch.cuda.device(acc.device):
         rc = lib.tfhe_rotdec_ext_t(
-            acc.data_ptr(), amounts.data_ptr(), out.data_ptr(), n, k, b,
-            p.l, p.bgbit, p.decomposition_offset, nd,
+            acc.data_ptr(), amounts.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), n, k, b, p.l,
+            p.bgbit, p.decomposition_offset, nd, plan.tb,
             torch.cuda.current_stream().cuda_stream)
     if rc:
         raise RuntimeError(

@@ -28,6 +28,8 @@ the fused step K3 (ops/cuda_step.py) and the pipelined step K9
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from ..params import TFHEParams
@@ -41,6 +43,10 @@ from .rotate import monomial_mul
 
 # extprod_tile.cuh's output tile: N must be a multiple of its TN.
 _EXTPROD_TN = 64
+# The H100's dynamic shared memory per block (opt-in limit), and the widths
+# of a rotate + decompose tile (csrc/rotdec_col.cuh).
+SMEM_LIMIT = 232448
+_TILE_WIDTHS = (4, 8, 16, 32)
 
 launch_counts = {"rotate_decompose_t": 0, "extprod_t": 0,
                  "rotate_decompose_ext_t": 0, "extprod_ext_t": 0,
@@ -99,6 +105,40 @@ def rotate_decompose_t_ref(p: TFHEParams, acc: torch.Tensor,
     return limbs.permute(0, 2, 3, 1).reshape(nd * 2 * p.l * n, b).contiguous()
 
 
+class RotdecPlan(NamedTuple):
+    """The launch of a staged-column rotate + decompose kernel (K1, K4;
+    csrc/rotdec_col.cuh): ``tb`` ciphertexts a tile (a block stages the
+    tile's whole column), ``two_pass`` (K4: the digits go in 128-byte runs
+    to a scratch buffer, then one more kernel writes the digit rows),
+    ``smem`` dynamic shared-memory bytes a block."""
+    tb: int
+    two_pass: bool
+    smem: int
+
+
+def column_plan(name: str, rows: int, n: int, b: int, tb: int,
+                two_pass: bool = False) -> RotdecPlan:
+    """A block staging ``rows`` rows of ``tb`` words and a rotation word a
+    ciphertext for each N of them; raises ValueError where the kernel does
+    not take it (csrc/rotdec_col.cuh plan_ok, the shared-memory limit)."""
+    if b < 1:
+        raise ValueError(f"{name}: empty batch")
+    if tb not in _TILE_WIDTHS or n % (32 // tb):
+        raise ValueError(f"{name}: tile width {tb} at N={n}; the kernel "
+                         f"takes {_TILE_WIDTHS} with N a multiple of 32/tb")
+    smem = 4 * (rows + rows // n) * tb
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{name}: {smem} bytes of shared memory a block "
+                         f"(tb={tb}); the card allows {SMEM_LIMIT}")
+    return RotdecPlan(tb, two_pass, smem)
+
+
+def rotdec_t_plan(n: int, b: int) -> RotdecPlan:
+    """K1's launch: a block stages one channel of a tile of 16, N rows of
+    16 words (64 KB at N 1024, three blocks an SM; 128 KB at 2048)."""
+    return column_plan("rotate_decompose_t", n, n, b, 16)
+
+
 def rotate_decompose_t(p: TFHEParams, acc: torch.Tensor,
                        amounts: torch.Tensor) -> torch.Tensor:
     """K1 (replaces pallas_t.rotate_decompose_t): see the ref's contract."""
@@ -107,6 +147,7 @@ def rotate_decompose_t(p: TFHEParams, acc: torch.Tensor,
     _, n, b = acc.shape
     _check("acc", acc, TORUS, (2, n, b), acc.device)
     _check("amounts", amounts, torch.int32, (b,), acc.device)
+    plan = rotdec_t_plan(n, b)
     nd = p.digit_limbs
     out = torch.empty((nd * 2 * p.l * n, b), dtype=torch.int8,
                       device=acc.device)
@@ -114,7 +155,7 @@ def rotate_decompose_t(p: TFHEParams, acc: torch.Tensor,
     with torch.cuda.device(acc.device):
         rc = lib.tfhe_rotdec_t(
             acc.data_ptr(), amounts.data_ptr(), out.data_ptr(), n, b, p.l,
-            p.bgbit, p.decomposition_offset, nd,
+            p.bgbit, p.decomposition_offset, nd, plan.tb,
             torch.cuda.current_stream().cuda_stream)
     if rc:
         raise RuntimeError(f"rotdec_t kernel launch failed: CUDA error {rc}")

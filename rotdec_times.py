@@ -1,0 +1,107 @@
+"""Times K1 and K4, the rotate + decompose kernels of go_tfhe_tpu_torch, on
+one CUDA card, two ways: an eager loop of calls between CUDA events (the
+way ``chip_smoke.py`` times the other kernels), and the same calls
+replayed from a CUDA graph (device time without the host's launch cost).
+
+    python3 rotdec_times.py [ROOT] [--seed S]
+
+ROOT is the checkout whose package is timed (default: this script's), so
+two trees can be compared on one card by running it on each in turns.
+Shapes: K1 at 128bit_fast B 4096, K4 at uint6_centered B 2048 and
+uint7_centered B 256, the main paths' shapes; each result is first held
+against the plain version (max |err| 0).  Prints one JSON object.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+import torch
+
+REPS = 20
+
+
+def eager_ms(fn, reps: int) -> float:
+    """Mean time of fn() over reps calls between two CUDA events."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device time of fn() over reps launches captured in one CUDA
+    graph and replayed: the kernels back to back, without the host's
+    launch cost (a short kernel's eager loop times the host)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("root", nargs="?",
+                    default=os.path.dirname(os.path.abspath(__file__)))
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("rotdec_times: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.abspath(args.root))
+    from go_tfhe_tpu_torch import params
+    from go_tfhe_tpu_torch.ops import cuda_ext_t, cuda_t
+
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    cases = [("rotate_decompose_t", params.P128_FAST, 4096,
+              cuda_t.rotate_decompose_t, cuda_t.rotate_decompose_t_ref),
+             ("rotate_decompose_ext_t", params.UINT6_CENTERED, 2048,
+              cuda_ext_t.rotate_decompose_ext_t,
+              cuda_ext_t.rotate_decompose_ext_t_ref),
+             ("rotate_decompose_ext_t", params.UINT7_CENTERED, 256,
+              cuda_ext_t.rotate_decompose_ext_t,
+              cuda_ext_t.rotate_decompose_ext_t_ref)]
+    out = {}
+    for name, p, b, kernel, plain in cases:
+        rows = p.poly_extend_factor * p.n
+        acc = torch.randint(-2 ** 31, 2 ** 31, (2, rows, b),
+                            dtype=torch.int32, device="cuda", generator=gen)
+        amounts = torch.randint(0, 2 * rows + 1, (b,), dtype=torch.int32,
+                                device="cuda", generator=gen)
+        fn = lambda: kernel(p, acc, amounts)
+        err = (fn().int() - plain(p, acc, amounts).int()).abs().max().item()
+        if err:
+            print(f"rotdec_times: {name} disagrees with its plain version "
+                  f"at {p.name} B={b}", file=sys.stderr)
+            return 1
+        out[f"{name} {p.name} B={b}"] = {
+            "eager_ms": eager_ms(fn, REPS), "graph_ms": graph_ms(fn, REPS)}
+    print(json.dumps({"root": os.path.abspath(args.root),
+                      "device": torch.cuda.get_device_name(0),
+                      "times": out}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -465,3 +465,34 @@ def test_extended_bootstrap_on_gpu_matches_cpu(cuda_device):
     np.testing.assert_array_equal(
         cipher.lwe_decrypt_message(want, m, sk.lv0).numpy(),
         (5 * msgs + 2) % m)
+
+
+# K4's staged-column tiling at its edges: k 2, 3 and 4; byte digits and
+# three-limb digits; the real uint6/uint7 widths (N 2048).
+K4_TILE_SHAPES = {
+    "k2_n256_bg8_l3": params.TEST_EXT2,
+    "k3_n256_bg18_nd3": EXT_WIDE,
+    "k4_n256_bg18_nd3": dataclasses.replace(EXT_WIDE, name="t_k4",
+                                            poly_extend_factor=4),
+    "uint6_centered": params.UINT6_CENTERED,
+    "uint7_centered": params.UINT7_CENTERED,
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 3, 4, 5, 7, 8, 9, 31, 33, 260, 2047])
+@pytest.mark.parametrize("shape", sorted(K4_TILE_SHAPES))
+def test_rotdec_ext_tile_edges_on_gpu(cuda_device, shape, b):
+    """K4 == its plain version at B around its tiles: 4 (two passes where
+    B % 4 == 0; one pass at uint7), 8 (one pass at uint6) and 32 (one pass
+    at N 256), and a ragged large B, with amounts 0, kN, 2kN - 1 and 2kN
+    among them."""
+    p = K4_TILE_SHAPES[shape]
+    k, n = p.poly_extend_factor, p.n
+    rng = np.random.default_rng(b)
+    acc = from_numpy_u32(_u32(rng, (2, k * n, b)), cuda_device)
+    am = torch.from_numpy(_amounts(p, b, rng)).to(cuda_device)
+    d = cuda_ext_t.rotate_decompose_ext_t(p, acc, am)
+    np.testing.assert_array_equal(
+        d.cpu().numpy(),
+        cuda_ext_t.rotate_decompose_ext_t_ref(p, acc, am).cpu().numpy())

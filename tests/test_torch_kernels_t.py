@@ -245,3 +245,35 @@ def test_gates_on_gpu_match_cpu(cuda_device):
     np.testing.assert_array_equal(to_numpy_u32(got), to_numpy_u32(want))
     np.testing.assert_array_equal(
         cipher.lwe_decrypt_bool(want, sk.lv0).numpy(), ~(a & b).numpy())
+
+
+# K1's staged-column tiling (csrc/rotdec_col.cuh) at its edges: N 256, 1024
+# and 2048; one-limb (l 2, l 3) and multi-limb digits (nd 2, nd 3).
+K1_TILE_SHAPES = {
+    "n256_bg8_l2": CONFIGS["bg8_l2_lo1"],
+    "n1024_bg6_l3": dataclasses.replace(CONFIGS["bg6_l3"], n=1024, nbit=10),
+    "n1024_bg10_l2_nd2": tparams.TFHEParams(
+        name="t_bg10", bgbit=10, l=2, **dict(_BASE, n=1024, nbit=10)),
+    "n2048_bg22_l1_nd3": tparams.TFHEParams(
+        name="t_bg22", bgbit=22, l=1, message_modulus=16,
+        **dict(_BASE, n=2048, nbit=11)),
+    "n256_bg18_l1_nd3": CONFIGS["bg18_l1_nd3"],
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 15, 16, 17, 2049])
+@pytest.mark.parametrize("shape", sorted(K1_TILE_SHAPES))
+def test_rotdec_tile_edges_on_gpu(cuda_device, shape, b):
+    """K1 == its plain version at B 1, TB - 1, TB, TB + 1 (tiles of 16)
+    and a ragged large B, with amounts 0, N and 2N among them."""
+    p = K1_TILE_SHAPES[shape]
+    rng = np.random.default_rng(b)
+    acc = from_numpy_u32(_u32(rng, (2, p.n, b)), cuda_device)
+    amounts = rng.integers(0, 2 * p.n + 1, b).astype(np.int32)
+    amounts[:3] = [0, p.n, 2 * p.n][:b]
+    am = torch.from_numpy(amounts).to(cuda_device)
+    d = cuda_t.rotate_decompose_t(p, acc, am)
+    np.testing.assert_array_equal(
+        d.cpu().numpy(),
+        cuda_t.rotate_decompose_t_ref(p, acc, am).cpu().numpy())
