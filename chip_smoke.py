@@ -35,10 +35,11 @@ Before that it builds the nine Hopper kernels from
 ``go_tfhe_tpu_torch/csrc/`` and holds each against its plain PyTorch
 version (tolerance 0) at the paths' shapes, wide-digit shapes, ragged
 batches, the edge rotation amounts and (K2, K5, K8, K3) extreme operands,
-and times each (CUDA events; K1 and K4, whose calls are shorter than
-their host launch cost, replayed from a CUDA graph, with their eager loop
-beside it), K2, K5 and K8 beside their library form (``torch._int_mm`` on
-int8 Toeplitz key limbs, ``library_ms``).
+and times each (CUDA events; K1, K4, K6 and K7, whose calls are about as
+short as their host launch cost, replayed from a CUDA graph, with their
+eager loop beside it; K9 also without its Y half), K2, K5 and K8 beside
+their library form (``torch._int_mm`` on int8 Toeplitz key limbs,
+``library_ms``).
 Each path runs with the launch counters set to 0 just before it and read
 just after.
 
@@ -454,22 +455,41 @@ def ext_kernels_against_plain(gen, dev, errs, times, lib, shape_times):
               f"per call ({u6.name}, B={UINT6_BATCH})", flush=True)
 
 
+def misaligned(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of x whose storage starts 4 bytes past a 16-byte
+    boundary (K6/K7 then stage it in 4-byte pieces)."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = flat[1:].view(x.shape)
+    view.copy_(x)
+    check(view.data_ptr() % 16 == 4, "the misaligned view is aligned")
+    return view
+
+
 def rowmajor_kernels_against_plain(gen, dev, errs, times, lib):
     """K6, K7 and K8 against their plain versions, exactly (tolerance 0):
-    K6 at uint8_centered B 256 and 255 (amounts 0, kN, 2kN - 1, 2kN among
-    them); K7 at 128bit_fast with bs 3 and 1, B 4096 and 4095 (amounts 0,
-    N, 2N among them) and an nd = 3 shape; K8 on K7's digits (12 rows of a
-    block step, 4 of a tail step, lo 1) and on K6's (uint8: B' = 9B, nd 3,
-    2 rows, lo 0), and on extreme operands.  K8's library form
-    (cuda_extprod.extprod_mm), checked exact and timed at its three
-    shapes.  Adds to ``errs``, ``times`` and ``lib`` (K6 at uint8 B 256,
-    K7 and K8 at the block step, B 4096) and returns the other shapes'
-    times."""
+    K6 at uint8_centered B 256 and 255 and at k 3 with nd 3 (N 256, B 9,
+    and a misaligned accumulator view), amounts 0, kN, 2kN - 1, 2kN among
+    them; K7 at 128bit_fast with bs 3 and 1, B 4096 and 4095, at 128bit
+    (bgbit 6, l 3) B 1031, at N 128 (test_block, bs 2) B 5 and 1, an nd = 3
+    shape, and 128bit_fast bs 3 B 129 on a misaligned view, amounts 0, N,
+    2N - 1, 2N among them; K8 on K7's digits (12 rows of a block step, 4 of
+    a tail step, lo 1; 18 at 128bit) and on K6's (uint8: B' = 9B, nd 3, 2
+    rows, lo 0), and on extreme operands.  K6 and K7 are timed in a CUDA
+    graph (their calls are about as short as the host's launch cost), with
+    their eager loops beside; K8 and its library form
+    (cuda_extprod.extprod_mm, checked exact) at its three shapes.  Adds to
+    ``errs``, ``times`` and ``lib`` (K6 at uint8 B 256, K7 and K8 at the
+    block step, B 4096) and returns the other shapes' times."""
     wide = params.TFHEParams(
         name="block_nd3", lwe_n=6, lwe_alpha=1.0 / (1 << 26), n=256,
         lv1_alpha=1.0 / (1 << 30), nbit=8, bgbit=18, l=1, basebit=4,
         iks_t=6, block_size=3, message_modulus=8)
-    u8, fast = params.UINT8_CENTERED, params.P128_FAST
+    ext3 = params.TFHEParams(
+        name="ext3_nd3", lwe_n=6, lwe_alpha=1.0 / (1 << 28), n=256,
+        lv1_alpha=1.0 / (1 << 31), nbit=8, bgbit=18, l=1, basebit=4,
+        iks_t=6, block_size=1, message_modulus=8, poly_extend_factor=3)
+    u8, fast, exact = params.UINT8_CENTERED, params.P128_FAST, params.P128
+    small = params.TEST_BLOCK
     extra = {}
 
     def rand_words(shape):
@@ -489,37 +509,42 @@ def rowmajor_kernels_against_plain(gen, dev, errs, times, lib):
               f"{built:.4f} ms with its Toeplitz limbs built", flush=True)
         return ms
 
-    for b in (UINT8_BATCH, UINT8_BATCH - 1):
-        k, n, nd = u8.poly_extend_factor, u8.n, u8.digit_limbs
+    for p, b, skew in ((u8, UINT8_BATCH, False), (u8, UINT8_BATCH - 1, False),
+                       (ext3, 9, False), (ext3, 9, True)):
+        k, n, nd = p.poly_extend_factor, p.n, p.digit_limbs
         big = 2 * k * n
         acc = rand_words((2, b, k * n))
         t = torch.randint(0, big + 1, (b,), dtype=torch.int32, device=dev,
                           generator=gen)
-        t[:4] = torch.tensor([big, 0, k * n, big - 1], dtype=torch.int32,
-                             device=dev)
-        lo = cuda_t.band_limb_drop(u8)
-        band = cuda_t.pack_bsk_band_t(rand_words((1, 2 * u8.l, 2, n)),
+        edges = torch.tensor([big, 0, k * n, big - 1], dtype=torch.int32,
+                             device=dev)[:b]
+        t[:len(edges)] = edges
+        lo = cuda_t.band_limb_drop(p)
+        band = cuda_t.pack_bsk_band_t(rand_words((1, 2 * p.l, 2, n)),
                                       lo)[0]
-        d_k = cuda_ext.rotate_decompose_ext(u8, acc, t)
-        d_p = cuda_ext.rotate_decompose_ext_ref(u8, acc, t)
+        d_k = cuda_ext.rotate_decompose_ext(p, misaligned(acc) if skew
+                                            else acc, t)
+        d_p = cuda_ext.rotate_decompose_ext_ref(p, acc, t)
         digits = d_p.view(b * k, -1)
         acc_f = acc.view(2, b * k, n)
         o_k = cuda_extprod.extprod(digits, band, acc_f, nd, lo)
         o_p = cuda_extprod.extprod_ref(digits, band, acc_f, nd, lo)
         torch.cuda.synchronize()
         e6, e8 = max_abs_err(d_k, d_p), max_abs_err(o_k, o_p)
-        print(f"   {u8.name} B={b:5d} (B'={b * k})  K6 max|err| {e6}  "
-              f"K8 max|err| {e8}", flush=True)
+        print(f"   {p.name:14s} B={b:5d} (B'={b * k}){' misaligned' * skew}  "
+              f"K6 max|err| {e6}  K8 max|err| {e8}", flush=True)
         check(e6 == 0 and e8 == 0,
-              f"kernel disagrees with its plain version at {u8.name} B={b}")
+              f"kernel disagrees with its plain version at {p.name} B={b}")
         note("rotate_decompose_ext", e6)
         note("extprod", e8)
-        if b == UINT8_BATCH:
+        if p is u8 and b == UINT8_BATCH:
+            k6 = lambda: cuda_ext.rotate_decompose_ext(u8, acc, t)
             times["rotate_decompose_ext"] = (
-                cuda_ms(lambda: cuda_ext.rotate_decompose_ext(u8, acc, t),
-                        20),
+                graph_ms(k6, 20),
                 cuda_ms(lambda: cuda_ext.rotate_decompose_ext_ref(u8, acc, t),
                         3))
+            extra[f"rotate_decompose_ext {u8.name} B={b}, eager loop"] = (
+                cuda_ms(k6, 20), times["rotate_decompose_ext"][1], None)
             extra["extprod uint8 B'=2304"] = (
                 cuda_ms(lambda: cuda_extprod.extprod(digits, band, acc_f, nd,
                                                      lo), 10),
@@ -528,36 +553,42 @@ def rowmajor_kernels_against_plain(gen, dev, errs, times, lib):
                 k8_library("uint8 B'=2304", digits, band, acc_f, nd, lo,
                            o_p))
 
-    for p, bs, b in ((fast, 3, BATCH), (fast, 3, BATCH - 1), (fast, 1, BATCH),
-                     (fast, 1, BATCH - 1), (wide, 3, 256)):
+    for p, bs, b, skew in ((fast, 3, BATCH, False), (fast, 3, BATCH - 1, False),
+                           (fast, 1, BATCH, False), (fast, 1, BATCH - 1, False),
+                           (exact, 3, 1031, False), (small, 2, 5, False),
+                           (small, 1, 1, False), (wide, 3, 256, False),
+                           (fast, 3, 129, True)):
         n, nd = p.n, p.digit_limbs
         lo = cuda_t.band_limb_drop(p)
         acc = rand_words((2, b, n))
         amounts = torch.randint(0, 2 * n + 1, (bs, b), dtype=torch.int32,
                                 device=dev, generator=gen)
-        amounts[:, :3] = torch.tensor([0, n, 2 * n], dtype=torch.int32,
-                                      device=dev)
+        edges = torch.tensor([0, n, 2 * n - 1, 2 * n], dtype=torch.int32,
+                             device=dev)[:b]
+        amounts[:, :len(edges)] = edges
         bsk = rand_words((bs, 2 * p.l, 2, n))
         if p.key_grid_bits:
             bsk &= ~((1 << p.key_grid_bits) - 1)
         bands = cuda_t.pack_bsk_band_t(bsk, lo)
-        band = (block_bands(dataclasses.replace(p, lwe_n=bs), bands)[0]
-                if bs > 1 else bands[0])
-        d_k = cuda_rotate.rotate_decompose(p, acc, amounts)
+        band = (block_bands(dataclasses.replace(p, lwe_n=bs, block_size=bs),
+                            bands)[0] if bs > 1 else bands[0])
+        d_k = cuda_rotate.rotate_decompose(p, misaligned(acc) if skew
+                                           else acc, amounts)
         d_p = cuda_rotate.rotate_decompose_ref(p, acc, amounts)
         o_k = cuda_extprod.extprod(d_p, band, acc, nd, lo)
         o_p = cuda_extprod.extprod_ref(d_p, band, acc, nd, lo)
         torch.cuda.synchronize()
         e7, e8 = max_abs_err(d_k, d_p), max_abs_err(o_k, o_p)
-        print(f"   {p.name:12s} bs={bs} B={b:5d} ({band.shape[1]:2d} rows)  "
-              f"K7 max|err| {e7}  K8 max|err| {e8}", flush=True)
+        print(f"   {p.name:12s} bs={bs} B={b:5d} ({band.shape[1]:2d} rows)"
+              f"{' misaligned' * skew}  K7 max|err| {e7}  K8 max|err| {e8}",
+              flush=True)
         check(e7 == 0 and e8 == 0, f"kernel disagrees with its plain "
               f"version at {p.name} bs={bs} B={b}")
         note("rotate_decompose", e7)
         note("extprod", e8)
         if p is fast and b == BATCH:
-            kt = cuda_ms(lambda: cuda_rotate.rotate_decompose(p, acc, amounts),
-                         20)
+            k7 = lambda: cuda_rotate.rotate_decompose(p, acc, amounts)
+            kt, ke7 = graph_ms(k7, 20), cuda_ms(k7, 20)
             pt = cuda_ms(lambda: cuda_rotate.rotate_decompose_ref(
                 p, acc, amounts), 3)
             ke = cuda_ms(lambda: cuda_extprod.extprod(d_p, band, acc, nd, lo),
@@ -566,6 +597,8 @@ def rowmajor_kernels_against_plain(gen, dev, errs, times, lib):
                                                           lo), 3)
             le = k8_library(f"{band.shape[1]} rows B={b}", d_p, band, acc,
                             nd, lo, o_p)
+            extra[f"rotate_decompose bs={bs} B={b}, eager loop"] = (
+                ke7, pt, None)
             if bs == 3:
                 times["rotate_decompose"], times["extprod"] = (kt, pt), (ke, pe)
                 lib["extprod"] = le
@@ -574,8 +607,8 @@ def rowmajor_kernels_against_plain(gen, dev, errs, times, lib):
                 extra["extprod 4 rows B=4096"] = (ke, pe, le)
     e8 = extreme_rowmajor(dev)
     note("extprod", e8)
-    shown = {"rotate_decompose_ext": f"{u8.name}, B={UINT8_BATCH}",
-             "rotate_decompose": f"{fast.name}, bs=3, B={BATCH}",
+    shown = {"rotate_decompose_ext": f"{u8.name}, B={UINT8_BATCH}, graph",
+             "rotate_decompose": f"{fast.name}, bs=3, B={BATCH}, graph",
              "extprod": f"{fast.name}, 12 rows, B={BATCH}"}
     for name, where in shown.items():
         ms, plain_ms = times[name]
@@ -714,6 +747,27 @@ def step_pipe_kernels_against_plain(gen, dev, errs, times):
         ms, plain_ms = times[name]
         print(f"   {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per "
               f"call ({fast.name}, {where})", flush=True)
+    # K9's Y half (its per-element K1 gather): the same X half with and
+    # without a Y half, each replayed from a CUDA graph.
+    acc_x, acc_y = rand_words((2, fast.n, h)), rand_words((2, fast.n, h))
+    digits_x = cuda_t.rotate_decompose_t_ref(fast, acc_x, amounts(fast.n, h))
+    bd, am_y = band(fast), amounts(fast.n, h)
+    no_y = torch.empty((2, fast.n, 0), dtype=torch.int32, device=dev)
+    no_am = torch.empty((0,), dtype=torch.int32, device=dev)
+    both = lambda: cuda_pipe.pipe_step(fast, digits_x, bd, acc_x, acc_y, am_y)
+    x_only = lambda: cuda_pipe.pipe_step(fast, digits_x, bd, acc_x, no_y,
+                                         no_am)
+    check(torch.equal(both()[0], x_only()[0]),
+          "K9's X half depends on its Y half")
+    ms_both, ms_x = graph_ms(both, 20), graph_ms(x_only, 20)
+    print(f"   pipe_step halves {h}/{h}: {ms_both:.4f} ms, {h}/0: {ms_x:.4f} "
+          f"ms (graph): the Y half {ms_both - ms_x:.4f} ms, "
+          f"{(ms_both - ms_x) / ms_both:.1%} of the call", flush=True)
+    plain_ms = times["pipe_step"][1]
+    return {f"pipe_step halves {h}/{h}, graph": {
+                "ms": ms_both, "plain_ms": plain_ms, "library_ms": None},
+            f"pipe_step halves {h}/0, graph": {
+                "ms": ms_x, "plain_ms": None, "library_ms": None}}
 
 
 def pbs_phase(gen, dev, p, batch: int, f, steady: bool,
@@ -988,7 +1042,8 @@ def main() -> int:
     ext_kernels_against_plain(gen, dev, errs, times, lib, shape_times)
     shape_times.update(rowmajor_kernels_against_plain(gen, dev, errs, times,
                                                       lib))
-    step_pipe_kernels_against_plain(gen, dev, errs, times)
+    shape_times.update(step_pipe_kernels_against_plain(gen, dev, errs,
+                                                       times))
     done(t0)
 
     p = params.P128_FAST
@@ -1200,6 +1255,18 @@ def main() -> int:
                                          0),
                     "rotate_decompose bs=1 B=4096": ("rotate_decompose",
                                                      p, BATCH, 4),
+                    "rotate_decompose bs=1 B=4096, eager loop": (
+                        "rotate_decompose", p, BATCH, 4),
+                    "rotate_decompose bs=3 B=4096, eager loop": (
+                        "rotate_decompose", p, BATCH, 12),
+                    f"rotate_decompose_ext {u8p.name} B={UINT8_BATCH}, "
+                    "eager loop": ("rotate_decompose_ext", u8p, UINT8_BATCH,
+                                   0),
+                    f"pipe_step halves {PIPE_HALF}/{PIPE_HALF}, graph": (
+                        "pipe_step", p, PIPE_HALF, 0),
+                    # no Y half: the X half is K2's work on one half
+                    f"pipe_step halves {PIPE_HALF}/0, graph": (
+                        "extprod_t", p, PIPE_HALF, 0),
                     "extprod 4 rows B=4096": ("extprod", p, BATCH, 4),
                     "extprod uint8 B'=2304": ("extprod", u8p, UINT8_BATCH,
                                               0)}

@@ -21,86 +21,87 @@
 // with the blocks folded into the batch.  t = 2kN is the identity
 // (mod_switch_general can return 2kN).
 //
-// What bounds it on this card: memory.  At uint8 (N 2048, k 9, nd 3) a
-// ciphertext reads 2 * 2 * 18432 words (each coefficient and its rotation
-// source, two channels) and writes 110,592 int8 digits.  The TPU composes
-// log2(2kN) rounds of static block rolls, because per-lane gathers are slow
-// there; here one thread per (ciphertext, output coefficient) computes its
-// source directly, as K4 does.  The threads of a warp run over consecutive
-// n of one output block of one ciphertext; they share t, so r and q are
-// the same across the warp and the source coefficients are consecutive:
-// the unrotated and rotated reads and the int8 stores coalesce.
+// What bounds it on this card: bytes.  At uint8 (N 2048, k 9, nd 3) a
+// ciphertext needs 2 * 18432 accumulator words and writes 110,592 int8
+// digits.  The TPU composes log2(2kN) rounds of static block rolls,
+// because per-lane gathers are slow there.  Here one block per
+// (ciphertext, output block r') stages, for each channel, its source block
+// r and its own block r' in shared memory (rotdec_row.cuh; r' alone when
+// r == r'), 32 KB at uint8, and makes the output block's 2*L*ND digit
+// rows, each thread 4 coefficients and one 32-bit store per digit row;
+// channel 1's blocks are in flight while channel 0's digits are made.
+// Each block of the accumulator is staged once as a rotation source (r' ->
+// r is a permutation) and once as the unrotated block, in whole aligned
+// runs; the k-fold grid (2,304 blocks at uint8 B 256) fills the card,
+// where one block staging a whole 72 KB row would leave 512.  (The
+// per-element kernel this replaces computed its source with runtime
+// divisions in every thread, read it misaligned and stored single bytes.)
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "rotdec_row.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
-
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(rotdec_row::kMaxThreads)
 rotdec_ext_kernel(const uint32_t* __restrict__ acc,
                   const int32_t* __restrict__ amounts,
                   int8_t* __restrict__ out, int n, int k, int b, int l,
-                  int bgbit, uint32_t offset, int nd) {
-  const int bi = blockIdx.x;
-  const int col = blockIdx.y * kThreads + threadIdx.x;   // r' * N + n
-  if (col >= k * n) return;
-  const int rp = col / n;
-  const int ni = col - rp * n;
-  const int big = 2 * k * n;
-  int t = amounts[bi] % big;
-  if (t < 0) t += big;
-  int r = (rp - t) % k;
-  if (r < 0) r += k;
-  int q = (t + r - rp) / k;                // exact, in [0, 2N]
-  if (q >= 2 * n) q -= 2 * n;
-  const int rr = q % n;
-  int src = ni - rr;
-  const bool wrapped = src < 0;
-  if (wrapped) src += n;
-  const bool neg = wrapped != (q >= n);
-  const size_t kn = (size_t)k * n;
-  const size_t plane = (size_t)b * kn;
-  const size_t row = (size_t)bi * kn;
-  const size_t src_col = (size_t)r * n + src;
-  const uint32_t mask = (1u << bgbit) - 1u;
-  const int32_t half_bg = 1 << (bgbit - 1);
-  const int l2 = 2 * l;
-  int8_t* out_b = out + (size_t)bi * k * nd * l2 * n;
+                  int bgbit, uint32_t offset, int nd, bool vec) {
+  extern __shared__ __align__(16) uint32_t smem[];   // [c][r' | r] blocks
+  int* rot = reinterpret_cast<int*>(smem + 4 * n);
+  const int bi = blockIdx.x, rp = blockIdx.y;
+  const size_t plane = (size_t)b * k * n;
+  const uint32_t* row = acc + (size_t)bi * k * n;
+  rotdec_row::stage(smem, row + (size_t)rp * n, n, vec);
+  // Every thread needs r to stage it: worked out while r' is in flight.
+  const int e = rotdec_row::rot_entry(amounts[bi], n, k, rp);
+  const int sel = e >> 17;
   for (int c = 0; c < 2; ++c) {
-    const uint32_t x0 = acc[c * plane + row + col];
-    uint32_t xr = acc[c * plane + row + src_col];
-    if (neg) xr = ~xr;
-    const uint32_t tmp = xr - x0 + offset;
-    for (int lv = 0; lv < l; ++lv) {
-      const int sh = 32 - (lv + 1) * bgbit;
-      int32_t d = (int32_t)((tmp >> sh) & mask) - half_bg;
-      for (int i = 0; i < nd; ++i) {
-        int32_t limb = d;
-        if (i < nd - 1) {                 // exact signed base-256 split
-          limb = ((d + 128) & 255) - 128;
-          d = (d - limb) >> 8;            // arithmetic shift, exact
-        }
-        const size_t ocol =
-            ((size_t)(rp * nd + i) * l2 + c * l + lv) * n + ni;
-        out_b[ocol] = (int8_t)limb;
-      }
-    }
+    if (c) rotdec_row::stage(smem + 2 * n, row + plane + (size_t)rp * n, n,
+                             vec);
+    if (sel != rp)
+      rotdec_row::stage(smem + (2 * c + 1) * n,
+                        row + c * plane + (size_t)sel * n, n, vec);
+    rotdec_row::commit();
+  }
+  if (threadIdx.x == 0) rot[0] = e;
+  const size_t digit_rows = (size_t)2 * l * n;   // one limb's
+  int8_t* o = out + ((size_t)bi * k + rp) * nd * digit_rows;
+  for (int c = 0; c < 2; ++c) {
+    rotdec_row::wait_groups(1 - c);
+    const uint32_t* x0 = smem + 2 * c * n;
+    const uint32_t* src = sel != rp ? x0 + n : x0;
+    if (bgbit == 8 && nd == 1)
+      rotdec_row::row_digits<true>(src, x0, rot, 1, o + c * l * n, 0,
+                                   digit_rows, n, threadIdx.x, blockDim.x, l,
+                                   bgbit, offset, nd);
+    else
+      rotdec_row::row_digits<false>(src, x0, rot, 1, o + c * l * n, 0,
+                                    digit_rows, n, threadIdx.x, blockDim.x, l,
+                                    bgbit, offset, nd);
   }
 }
 
 }  // namespace
 
-// acc (2, B, k*N) uint32, amounts (B,) int32, out (B, k*nd*2L*N) int8; all
-// on the current device.  Launches on `stream`; returns cudaGetLastError().
+// acc (2, B, k*N) uint32, amounts (B,) int32, out (B, k*nd*2L*N) int8
+// (4-byte aligned); all on the current device.  threads: a block's (the
+// wrapper's plan, ops/cuda_ext.rotdec_ext_plan: N/4 up to 256).  Launches
+// one block per (ciphertext, output block) on `stream`; returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a plan it does not take.
 extern "C" int tfhe_rotdec_ext(const void* acc, const void* amounts,
                                void* out, int n, int k, int b, int l,
                                int bgbit, unsigned int offset, int nd,
-                               void* stream) {
-  dim3 grid(b, (k * n + kThreads - 1) / kThreads);
-  rotdec_ext_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+                               int threads, void* stream) {
+  const size_t smem = ((size_t)4 * n + 1) * 4;
+  if (!rotdec_row::plan_ok(n, threads, smem) || threads > n / 4 || b < 1 ||
+      k < 1 || k > 65535 || l < 1 || nd < 1 || (uintptr_t)out % 4)
+    return (int)cudaErrorInvalidValue;
+  const bool vec = (uintptr_t)acc % 16 == 0;
+  rotdec_ext_kernel<<<dim3(b, k), threads, smem, (cudaStream_t)stream>>>(
       (const uint32_t*)acc, (const int32_t*)amounts, (int8_t*)out, n, k, b, l,
-      bgbit, (uint32_t)offset, nd);
+      bgbit, (uint32_t)offset, nd, vec);
   return (int)cudaGetLastError();
 }

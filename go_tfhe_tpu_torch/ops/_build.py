@@ -30,7 +30,7 @@ BUILD_DIR = os.path.join(_PKG, "build")
 SOURCES = ("rotdec_t.cu", "extprod_t.cu", "rotdec_ext_t.cu",
            "extprod_ext_t.cu", "rotdec_ext.cu", "rotdec.cu", "extprod.cu",
            "step.cu", "pipe.cu")
-HEADERS = ("extprod_tile.cuh", "rotdec_col.cuh")
+HEADERS = ("extprod_tile.cuh", "rotdec_col.cuh", "rotdec_row.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -47,11 +47,13 @@ _SIGNATURES = {
                           ctypes.c_uint32, _I, _I, _P),
     # digits, band, acc, out, n, k, b, l2, nd, lo, stream
     "tfhe_extprod_ext_t": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # acc, amounts, out, n, k, b, l, bgbit, offset, nd, stream
+    # acc, amounts, out, n, k, b, l, bgbit, offset, nd, threads, stream
     "tfhe_rotdec_ext": (_P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_uint32, _I,
-                        _P),
-    # acc, amounts, out, n, b, bs, l, bgbit, offset, nd, stream
-    "tfhe_rotdec": (_P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_uint32, _I, _P),
+                        _I, _P),
+    # acc, amounts, out, n, b, bs, l, bgbit, offset, nd, rows, threads,
+    # stream
+    "tfhe_rotdec": (_P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_uint32, _I, _I,
+                    _I, _P),
     # digits, band, acc, out, n, b', rows, nd, lo, stream
     "tfhe_extprod": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # acc, amounts, band, out, n, b, l, bgbit, offset, lo, stream

@@ -15,9 +15,11 @@ Layouts (the JAX package's, words as int32):
 with the k blocks folded into the batch: every block contracts against the
 same band.
 
-:func:`rotate_decompose_ext` launches ``csrc/rotdec_ext.cu`` on CUDA
-tensors and runs :func:`rotate_decompose_ext_ref` on CPU tensors; each
-launch adds one to ``cuda_t.launch_counts["rotate_decompose_ext"]``.
+:func:`rotate_decompose_ext` launches ``csrc/rotdec_ext.cu`` (the
+staged-row kernel, ``csrc/rotdec_row.cuh``, one block per ciphertext and
+output block; :func:`rotdec_ext_plan`) on CUDA tensors and runs
+:func:`rotate_decompose_ext_ref` on CPU tensors; each launch adds one to
+``cuda_t.launch_counts["rotate_decompose_ext"]``.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from ..params import TFHEParams
 from ..utils.torus import TORUS
 from . import _build
 from .cuda_ext_t import rotate_decompose_ext_t_ref
-from .cuda_t import _check, launch_counts
+from .cuda_t import RowPlan, _check, launch_counts, row_plan
 
 
 def rotate_decompose_ext_ref(p: TFHEParams, acc: torch.Tensor,
@@ -43,6 +45,13 @@ def rotate_decompose_ext_ref(p: TFHEParams, acc: torch.Tensor,
                                       amounts).t().contiguous()
 
 
+def rotdec_ext_plan(n: int, k: int, b: int) -> RowPlan:
+    """K6's launch: a block for each (ciphertext, output block) stages, for
+    each channel in turn, its own block and its rotation source block, N
+    words each, and the rotation."""
+    return row_plan("rotate_decompose_ext", n, (b, k, 1), 2, 1, 4 * n + 1)
+
+
 def rotate_decompose_ext(p: TFHEParams, acc: torch.Tensor,
                          amounts: torch.Tensor) -> torch.Tensor:
     """K6 (replaces pallas_ext.rotate_decompose_ext_pallas): see the ref's
@@ -53,13 +62,14 @@ def rotate_decompose_ext(p: TFHEParams, acc: torch.Tensor,
     b = acc.shape[1]
     _check("acc", acc, TORUS, (2, b, k * n), acc.device)
     _check("amounts", amounts, torch.int32, (b,), acc.device)
+    plan = rotdec_ext_plan(n, k, b)
     out = torch.empty((b, k * nd * 2 * p.l * n), dtype=torch.int8,
                       device=acc.device)
     lib = _build.load_library()
     with torch.cuda.device(acc.device):
         rc = lib.tfhe_rotdec_ext(
             acc.data_ptr(), amounts.data_ptr(), out.data_ptr(), n, k, b,
-            p.l, p.bgbit, p.decomposition_offset, nd,
+            p.l, p.bgbit, p.decomposition_offset, nd, plan.threads,
             torch.cuda.current_stream().cuda_stream)
     if rc:
         raise RuntimeError(f"rotdec_ext kernel launch failed: CUDA error {rc}")

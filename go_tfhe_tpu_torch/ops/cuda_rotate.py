@@ -14,8 +14,10 @@ amount, so one external product (K8, ops/cuda_extprod.py) contracts all
 bs*2L digit rows against the block's bands at once.  bs = 1 is the
 per-bit step of the block rotation's ragged tail.
 
-:func:`rotate_decompose` launches ``csrc/rotdec.cu`` on CUDA tensors and
-runs :func:`rotate_decompose_ref` on CPU tensors; each launch adds one to
+:func:`rotate_decompose` launches ``csrc/rotdec.cu`` (the staged-row
+kernel, ``csrc/rotdec_row.cuh``, a block for a few accumulator rows;
+:func:`rotdec_plan`) on CUDA tensors and runs :func:`rotate_decompose_ref`
+on CPU tensors; each launch adds one to
 ``cuda_t.launch_counts["rotate_decompose"]``.
 """
 
@@ -26,7 +28,7 @@ import torch
 from ..params import TFHEParams
 from ..utils.torus import TORUS
 from . import _build
-from .cuda_t import _check, launch_counts
+from .cuda_t import RowPlan, _check, launch_counts, row_plan
 from .decompose import gadget_decompose
 from .polymul import split_signed_limbs_i8
 from .rotate import monomial_mul
@@ -58,6 +60,15 @@ def rotate_decompose_ref(p: TFHEParams, acc: torch.Tensor,
                                          ).contiguous()
 
 
+def rotdec_plan(n: int, b: int, bs: int) -> RowPlan:
+    """K7's launch: a block stages 16 KB of consecutive accumulator rows
+    (channel-major rows c*B + b; 4 at N 1024) and their bs rotations, in two
+    halves, and works on a half's rows at once where N/4 < 256."""
+    rows = max(1, 4096 // n)
+    return row_plan("rotate_decompose", n, (-(-2 * b // rows), 1, 1), rows,
+                    -(-rows // 2), rows * (n + bs))
+
+
 def rotate_decompose(p: TFHEParams, acc: torch.Tensor,
                      amounts: torch.Tensor) -> torch.Tensor:
     """K7 (replaces pallas_rotate.rotate_decompose_pallas): see the ref's
@@ -69,13 +80,15 @@ def rotate_decompose(p: TFHEParams, acc: torch.Tensor,
     nd, n = p.digit_limbs, acc.shape[-1]
     _check("acc", acc, TORUS, (2, b, n), acc.device)
     _check("amounts", amounts, torch.int32, (bs, b), acc.device)
+    plan = rotdec_plan(n, b, bs)
     out = torch.empty((b, nd * bs * 2 * p.l * n), dtype=torch.int8,
                       device=acc.device)
     lib = _build.load_library()
     with torch.cuda.device(acc.device):
         rc = lib.tfhe_rotdec(
             acc.data_ptr(), amounts.data_ptr(), out.data_ptr(), n, b, bs,
-            p.l, p.bgbit, p.decomposition_offset, nd,
+            p.l, p.bgbit, p.decomposition_offset, nd, plan.rows,
+            plan.threads,
             torch.cuda.current_stream().cuda_stream)
     if rc:
         raise RuntimeError(f"rotdec kernel launch failed: CUDA error {rc}")

@@ -47,6 +47,10 @@ _EXTPROD_TN = 64
 # of a rotate + decompose tile (csrc/rotdec_col.cuh).
 SMEM_LIMIT = 232448
 _TILE_WIDTHS = (4, 8, 16, 32)
+# The staged-row kernel (csrc/rotdec_row.cuh): the shared memory a block
+# gets without opting in, and at most this many threads a block.
+ROW_SMEM_LIMIT = 49152
+_ROW_THREADS = 256
 
 launch_counts = {"rotate_decompose_t": 0, "extprod_t": 0,
                  "rotate_decompose_ext_t": 0, "extprod_ext_t": 0,
@@ -131,6 +135,38 @@ def column_plan(name: str, rows: int, n: int, b: int, tb: int,
         raise ValueError(f"{name}: {smem} bytes of shared memory a block "
                          f"(tb={tb}); the card allows {SMEM_LIMIT}")
     return RotdecPlan(tb, two_pass, smem)
+
+
+class RowPlan(NamedTuple):
+    """The launch of the staged-row rotate + decompose kernel (K7, K6;
+    csrc/rotdec_row.cuh): ``grid`` (x, y, z) blocks of ``threads`` threads,
+    each staging ``rows`` source rows of N words (and their rotations) in
+    ``smem`` bytes of shared memory."""
+    grid: tuple
+    threads: int
+    rows: int
+    smem: int
+
+
+def row_plan(name: str, n: int, grid: tuple, rows: int, at_once: int,
+             words: int) -> RowPlan:
+    """Blocks that stage ``rows`` rows of N (``words`` words with the
+    rotations) and work on ``at_once`` rows at a time, 4 coefficients a
+    thread: N/4 threads a row, up to 256 a block; raises ValueError where
+    the kernel does not take it (csrc/rotdec_row.cuh plan_ok)."""
+    if grid[0] < 1:
+        raise ValueError(f"{name}: empty batch")
+    if n < 128 or n % 128:
+        raise ValueError(f"{name}: N={n}; the kernel takes N a multiple of "
+                         "128")
+    smem = 4 * words
+    if smem > ROW_SMEM_LIMIT:
+        raise ValueError(f"{name}: {smem} bytes of shared memory a block; "
+                         f"the kernel takes {ROW_SMEM_LIMIT}")
+    per_row = n // 4
+    threads = min(_ROW_THREADS,
+                  per_row * min(at_once, max(1, _ROW_THREADS // per_row)))
+    return RowPlan(grid, threads, rows, smem)
 
 
 def rotdec_t_plan(n: int, b: int) -> RotdecPlan:

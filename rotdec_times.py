@@ -1,15 +1,17 @@
-"""Times K1 and K4, the rotate + decompose kernels of go_tfhe_tpu_torch, on
-one CUDA card, two ways: an eager loop of calls between CUDA events (the
-way ``chip_smoke.py`` times the other kernels), and the same calls
+"""Times the rotate + decompose kernels of go_tfhe_tpu_torch (K1, K4, K6,
+K7) on one CUDA card, two ways: an eager loop of calls between CUDA events
+(the way ``chip_smoke.py`` times the other kernels), and the same calls
 replayed from a CUDA graph (device time without the host's launch cost).
 
     python3 rotdec_times.py [ROOT] [--seed S]
 
 ROOT is the checkout whose package is timed (default: this script's), so
 two trees can be compared on one card by running it on each in turns.
-Shapes: K1 at 128bit_fast B 4096, K4 at uint6_centered B 2048 and
-uint7_centered B 256, the main paths' shapes; each result is first held
-against the plain version (max |err| 0).  Prints one JSON object.
+Shapes, the main paths': K1 at 128bit_fast B 4096, K4 at uint6_centered B
+2048 and uint7_centered B 256, K7 at 128bit_fast B 4096 with bs 3 (the
+block rotation) and bs 1 (route (b)), K6 at uint8_centered B 256; each
+result is first held against the plain version (max |err| 0).  Prints one
+JSON object.
 """
 
 from __future__ import annotations
@@ -71,24 +73,37 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.abspath(args.root))
     from go_tfhe_tpu_torch import params
-    from go_tfhe_tpu_torch.ops import cuda_ext_t, cuda_t
+    from go_tfhe_tpu_torch.ops import cuda_ext, cuda_ext_t, cuda_rotate, cuda_t
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    cases = [("rotate_decompose_t", params.P128_FAST, 4096,
-              cuda_t.rotate_decompose_t, cuda_t.rotate_decompose_t_ref),
-             ("rotate_decompose_ext_t", params.UINT6_CENTERED, 2048,
+    fast, u8 = params.P128_FAST, params.UINT8_CENTERED
+    # (label, profile, batch, block bits, kernel, plain, row-major layout)
+    cases = [("rotate_decompose_t", fast, 4096, 1,
+              cuda_t.rotate_decompose_t, cuda_t.rotate_decompose_t_ref, False),
+             ("rotate_decompose_ext_t", params.UINT6_CENTERED, 2048, 1,
               cuda_ext_t.rotate_decompose_ext_t,
-              cuda_ext_t.rotate_decompose_ext_t_ref),
-             ("rotate_decompose_ext_t", params.UINT7_CENTERED, 256,
+              cuda_ext_t.rotate_decompose_ext_t_ref, False),
+             ("rotate_decompose_ext_t", params.UINT7_CENTERED, 256, 1,
               cuda_ext_t.rotate_decompose_ext_t,
-              cuda_ext_t.rotate_decompose_ext_t_ref)]
+              cuda_ext_t.rotate_decompose_ext_t_ref, False),
+             ("rotate_decompose bs=3", fast, 4096, 3,
+              cuda_rotate.rotate_decompose, cuda_rotate.rotate_decompose_ref,
+              True),
+             ("rotate_decompose bs=1", fast, 4096, 1,
+              cuda_rotate.rotate_decompose, cuda_rotate.rotate_decompose_ref,
+              True),
+             ("rotate_decompose_ext", u8, 256, 1,
+              cuda_ext.rotate_decompose_ext,
+              cuda_ext.rotate_decompose_ext_ref, True)]
     out = {}
-    for name, p, b, kernel, plain in cases:
-        rows = p.poly_extend_factor * p.n
-        acc = torch.randint(-2 ** 31, 2 ** 31, (2, rows, b),
+    for name, p, b, bs, kernel, plain, row_major in cases:
+        words = p.poly_extend_factor * p.n
+        acc = torch.randint(-2 ** 31, 2 ** 31,
+                            (2, b, words) if row_major else (2, words, b),
                             dtype=torch.int32, device="cuda", generator=gen)
-        amounts = torch.randint(0, 2 * rows + 1, (b,), dtype=torch.int32,
-                                device="cuda", generator=gen)
+        amounts = torch.randint(0, 2 * words + 1, (bs, b) if bs > 1 else (b,),
+                                dtype=torch.int32, device="cuda",
+                                generator=gen)
         fn = lambda: kernel(p, acc, amounts)
         err = (fn().int() - plain(p, acc, amounts).int()).abs().max().item()
         if err:

@@ -310,13 +310,45 @@ def _gpu_step(fn, counter, *args):
     return out
 
 
+def _misaligned(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of x whose storage starts 4 bytes past a 16-byte
+    boundary: the staged-row kernel then stages it in 4-byte pieces."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = flat[1:].view(x.shape)
+    view.copy_(x)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    return view
+
+
+# The staged-row kernel's edges (csrc/rotdec_row.cuh): ragged and one-
+# ciphertext batches, and a misaligned accumulator (4-byte staging).
+ROW_BATCHES = [(1, False), (3, False), (4, False), (5, False), (5, True),
+               (8, False), (127, False), (129, False), (129, True),
+               (130, False), (4095, False)]
+# K6 at N 128, 256 and 2048, k 2, 3 and 9, nd 1 and 3, l 2 and 3.
+K6_GPU_SHAPES = {
+    **K6_SHAPES,
+    "n128_k3": params.TFHEParams(
+        name="t_k6_n128", lwe_n=4, lwe_alpha=1.0 / (1 << 28), n=128,
+        lv1_alpha=1.0 / (1 << 31), nbit=7, bgbit=8, l=2, basebit=4, iks_t=6,
+        block_size=1, poly_extend_factor=3),
+    "uint6_centered": params.UINT6_CENTERED,
+    "uint8_centered": params.UINT8_CENTERED}
+# K7 at N 128, 256, 1024 and 2048, nd 1-3, l 1-3.
+ROT_GPU_SHAPES = {**ROT_SHAPES, "test_block": params.TEST_BLOCK,
+                  "128bit": params.P128, "uint1": params.UINT1,
+                  "uint4": params.UINT4}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("b", [1, 8, 130])
-@pytest.mark.parametrize("shape", sorted(K6_SHAPES))
-def test_k6_matches_plain_on_gpu(cuda_device, shape, b):
-    p = K6_SHAPES[shape]
+@pytest.mark.parametrize("b,misaligned", ROW_BATCHES)
+@pytest.mark.parametrize("shape", sorted(K6_GPU_SHAPES))
+def test_k6_matches_plain_on_gpu(cuda_device, shape, b, misaligned):
+    p = K6_GPU_SHAPES[shape]
     acc, t = _k6_inputs(p, b, 10)
     acc_t, t_t = _t(acc, cuda_device), torch.from_numpy(t).to(cuda_device)
+    if misaligned:
+        acc_t = _misaligned(acc_t)
     d = _gpu_step(cuda_ext.rotate_decompose_ext, "rotate_decompose_ext", p,
                   acc_t, t_t)
     np.testing.assert_array_equal(
@@ -325,11 +357,11 @@ def test_k6_matches_plain_on_gpu(cuda_device, shape, b):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b", [1, 8, 130])
-@pytest.mark.parametrize("bs", [1, 3])
-@pytest.mark.parametrize("shape", sorted(ROT_SHAPES))
-def test_k7_k8_match_plain_on_gpu(cuda_device, shape, bs, b):
-    p = ROT_SHAPES[shape]
+@pytest.mark.parametrize("b,misaligned", ROW_BATCHES)
+@pytest.mark.parametrize("bs", [1, 2, 3])
+@pytest.mark.parametrize("shape", sorted(ROT_GPU_SHAPES))
+def test_k7_k8_match_plain_on_gpu(cuda_device, shape, bs, b, misaligned):
+    p = ROT_GPU_SHAPES[shape]
     nd = p.digit_limbs
     acc, amounts = _k7_inputs(p, bs, b, 11)
     acc_t = _t(acc, cuda_device)
@@ -340,7 +372,7 @@ def test_k7_k8_match_plain_on_gpu(cuda_device, shape, bs, b):
     band = block_bands(dataclasses.replace(p, lwe_n=bs, block_size=bs),
                        bands)[0] if bs > 1 else bands[0]
     d = _gpu_step(cuda_rotate.rotate_decompose, "rotate_decompose", p,
-                  acc_t, am_t)
+                  _misaligned(acc_t) if misaligned else acc_t, am_t)
     np.testing.assert_array_equal(
         d.cpu().numpy(),
         cuda_rotate.rotate_decompose_ref(p, acc_t, am_t).cpu().numpy())
