@@ -29,7 +29,20 @@ entry points a user calls:
   ``blind_rotate_tpu`` with ``blindrotate.FUSED_STEP`` set (the fused step
   K3, 700 launches) and unset (K7 + K8, 700 each), and
   ``engine.PREFER_PIPE`` through ``blind_rotate_pipe`` (one K1, then 1400
-  K9 half-batch steps), with K1 + K2 timed again in the same phase.
+  K9 half-batch steps), with K1 + K2 timed again in the same phase;
+* the circuit library on the first keys, batch 4096: ``gates.NOT``,
+  ``COPY`` and ``constant`` (no bootstrap), ``gates.MUX`` on the 8 (sel,
+  then, else) combinations (two bootstraps without key switch, one key
+  switch), ``MUX_3GATE``, 8-bit ``models.adders.ripple_carry_add`` (40
+  gate bootstraps) and ``ripple_add_manylut`` (8 many-LUT bootstraps);
+* ``uint5`` (lwe_n 1071, N 2048, three digit limbs; K1 + K2): keygen on
+  the card, ``adders.add8_pbs`` on 2048 pairs of 8-bit numbers (3
+  programmable bootstraps) and ``models.comparators.ge``/``lt``/``eq`` on
+  every pair of [0, 16)^2, tiled to 2048;
+* proxy re-encryption at ``128bit_fast``'s level 0 (no kernel: the key
+  switch's digit contraction): keys made on the card, symmetric and
+  asymmetric re-encryption of 4096 bits and a 3-hop chain, the card's
+  words against the CPU's.
 
 Before that it builds the nine Hopper kernels from
 ``go_tfhe_tpu_torch/csrc/`` and holds each against its plain PyTorch
@@ -62,11 +75,14 @@ import time
 import numpy as np
 import torch
 
-from go_tfhe_tpu_torch import cipher, engine, gates, keys, lut, params
+from go_tfhe_tpu_torch import (bitutils, cipher, engine, gates, keys, lut,
+                               params, proxyreenc)
+from go_tfhe_tpu_torch.models import adders, comparators
 from go_tfhe_tpu_torch.ops import (_build, blindrotate, cuda_ext, cuda_ext_t,
                                    cuda_extprod, cuda_pipe, cuda_rotate,
                                    cuda_step, cuda_t)
 from go_tfhe_tpu_torch.ops.blindrotate import block_bands
+from go_tfhe_tpu_torch.utils.torus import f64_to_torus
 from rotdec_times import graph_ms
 
 BATCH = 4096
@@ -77,6 +93,29 @@ UINT6_BATCH = 2048
 UINT7_BATCH = 256
 UINT8_BATCH = 256
 PBS_PLAIN_CHECK = 8
+U5 = params.UINT5
+U5_BATCH = 2048
+# The uint5 PBS's margin guard.  The profile's design margin is 5.1 sigma
+# (the JAX package's NOISE_PBS_r05.json: std 2^22.64 against the 2^25
+# half-segment, 0 wrong of 1024), so the 8 sigma floor cannot hold there;
+# 4.5 sigma leaves room for sampling noise on a batch of 2048.
+U5_MIN_SIGMAS = 4.5
+# The many-LUT bootstrap at theta 1 measured 8.2 sigma against the mod-8
+# half-segment 2^27 (NOISE_MANY_r05.json); with that mean, 8 sigma would
+# fail on sampling noise alone.
+MANY_LUT_MIN_SIGMAS = 7.5
+PROXY_BATCH = 4096
+PROXY_CPU_CHECK = 1024
+# The asymmetric re-encryption key's design margin at 128bit_fast: each
+# table word carries the noise of ~lwe_n public-key zero-encryptions
+# (sqrt(700) x 2^16.4), and a re-encryption sums ~3/4 of lwe_n * t = 6300
+# table words, std ~2^27.2 against the 2^29 margin: about 3.5-3.9 sigma,
+# so about 1e-4 of the outputs decrypt wrong by design (the reference's
+# own tests ask for 90%, proxyreenc/proxyreenc_test.go:109-138).  The
+# guard holds the margin to the design and the wrong outputs to 0.1%.
+ASYM_MIN_SIGMAS = 3.5
+ASYM_MAX_WRONG = PROXY_BATCH // 1000
+T_EIGHTH = int(f64_to_torus(0.125))
 K1K2 = ("rotate_decompose_t", "extprod_t")
 K4K5 = ("rotate_decompose_ext_t", "extprod_ext_t")
 K6K8 = ("rotate_decompose_ext", "extprod")
@@ -273,22 +312,24 @@ def library_time(fn, want: torch.Tensor, what: str) -> float:
 def kernels_against_plain(gen, dev, shape_times):
     """K1 and K2 against their plain versions, exactly (tolerance 0), at
     the main path's shapes, 128bit (l 3), a wide-digit shape (nd 3, N 256),
-    the uint4 shape (nd 3, N 2048), ragged batches (B 1, 3, 15, 16, 17,
-    127, 129, 2049, 4095; K1's tiles hold 16) with amounts 0, N and 2N
-    among them, and, for K2, extreme operands (every digit limb and every
-    key limb -128, lo 0 and 1).  K1 is timed in a CUDA graph at
-    128bit_fast B 4096, and in ``shape_times`` there in an eager loop and
-    with its input evicted from L2, and at 128bit B 4096 and uint4 B 2048.
-    Returns ({kernel: max_abs_err}, {kernel: (ms, plain_ms)}, {kernel:
+    the uint4 shape (nd 3, N 2048), the uint5 PBS's (nd 3, N 2048, B
+    2048, all 9 limb pairs), ragged batches (B 1, 3, 15, 16, 17, 127, 129,
+    2049, 4095; K1's tiles hold 16) with amounts 0, N and 2N among them,
+    and, for K2, extreme operands (every digit limb and every key limb
+    -128, lo 0 and 1).  K1 is timed in a CUDA graph at 128bit_fast B 4096,
+    and in ``shape_times`` there in an eager loop and with its input
+    evicted from L2, and at 128bit B 4096, uint4 B 2048 and uint5 B 2048;
+    K2 and its library form also at uint5 B 2048.  Returns ({kernel: max_abs_err}, {kernel: (ms, plain_ms)}, {kernel:
     library_ms})."""
     wide = params.TFHEParams(
         name="wide_nd3", lwe_n=4, lwe_alpha=1.0 / (1 << 26), n=256,
         lv1_alpha=1.0 / (1 << 30), nbit=8, bgbit=18, l=1, basebit=4,
         iks_t=6, block_size=1, message_modulus=8)
-    fast, exact, u4 = params.P128_FAST, params.P128, params.UINT4
+    fast, exact, u4, u5 = params.P128_FAST, params.P128, params.UINT4, U5
     cases = [(fast, BATCH), (exact, BATCH), (wide, 256), (u4, 2048),
-             (fast, 1), (fast, 3), (fast, 15), (fast, 16), (fast, 17),
-             (fast, 127), (fast, 129), (u4, 2049), (fast, BATCH - 1)]
+             (u5, U5_BATCH), (fast, 1), (fast, 3), (fast, 15), (fast, 16),
+             (fast, 17), (fast, 127), (fast, 129), (u4, 2049),
+             (fast, BATCH - 1)]
     errs = dict.fromkeys(cuda_t.launch_counts, 0)
     times, lib = {}, {}
     for p, b in cases:
@@ -345,6 +386,17 @@ def kernels_against_plain(gen, dev, shape_times):
             shape_times[f"rotate_decompose_t {p.name} B={b}"] = {
                 "ms": graph_ms(k1, 20), "plain_ms": k1_plain_ms(),
                 "library_ms": None}
+        elif p is u5 and b == U5_BATCH:      # the uint5 PBS's K1 and K2
+            shape_times[f"rotate_decompose_t {p.name} B={b}"] = {
+                "ms": graph_ms(k1, 20), "plain_ms": k1_plain_ms(),
+                "library_ms": None}
+            shape_times[f"extprod_t {p.name} B={b}"] = {
+                "ms": cuda_ms(lambda: cuda_t.extprod_t(d_p, band, acc, nd,
+                                                       lo), 10),
+                "plain_ms": cuda_ms(lambda: cuda_t.extprod_t_ref(
+                    d_p, band, acc, nd, lo), 3),
+                "library_ms": library_time(lambda: cuda_t.extprod_t_mm(
+                    d_p, band, acc, nd, lo), o_p, f"extprod_t {p.name}")}
     for p in (exact, fast):        # lo 0 and 1
         e2 = extreme_case(dev, p, 256, 1)
         errs["extprod_t"] = max(errs["extprod_t"], e2)
@@ -996,13 +1048,305 @@ def per_bit_routes_phase(p, ck, sk, ct_a, ct_b, bits_a, bits_b,
     engine.PREFER_PIPE = False
     return out
 
+def timed_run(label: str, fn) -> tuple:
+    """fn() once with the launch counters set to 0 just before and read
+    just after: (result, seconds on the host clock around a synchronize,
+    launches)."""
+    torch.cuda.synchronize()
+    cuda_t.reset_launch_counts()
+    t1 = time.perf_counter()
+    out = fn()
+    secs = done(t1, f"{label}: ")
+    launches = dict(cuda_t.launch_counts)
+    print(f"   launches: {launches}", flush=True)
+    return out, secs, launches
+
+
+def bool_margin(ct, key, truth, what: str, floor: float = MIN_SIGMAS,
+                max_wrong: int = 0) -> float:
+    """At most ``max_wrong`` boolean outputs (lv0 key ``key``) decrypt
+    other than ``truth``, and the phase keeps at least ``floor`` sigma of
+    the 2^29 margin.  Returns the margin."""
+    truth = np.asarray(truth).reshape(-1)
+    flat = ct.reshape(-1, ct.shape[-1])
+    dec = cipher.lwe_decrypt_bool(flat, key).cpu().numpy()
+    wrong = int((dec != truth).sum())
+    check(wrong <= max_wrong,
+          f"{wrong}/{truth.size} {what} outputs decrypt wrong")
+    sig, std, worst = margin_sigmas(
+        cipher.lwe_phase(flat, key).cpu().numpy(),
+        np.where(truth, MARGIN, -MARGIN), MARGIN)
+    print(f"   {what}: {truth.size - wrong}/{truth.size} right, phase noise "
+          f"std 2^{np.log2(std):.2f}, max |dev| 2^{np.log2(worst + 1):.2f}, "
+          f"margin {sig:.1f} sigma", flush=True)
+    check(sig >= floor, f"{what} noise margin {sig:.1f} sigma below {floor}")
+    return sig
+
+
+def message_margin(ct, key, want, m: int, what: str, floor: float) -> float:
+    """Every modulus-m message output (lv0 key ``key``) decrypts to
+    ``want``, and its phase keeps at least ``floor`` sigma of the 2^31/m/2
+    half-segment."""
+    want = np.asarray(want).reshape(-1)
+    flat = ct.reshape(-1, ct.shape[-1])
+    dec = cipher.lwe_decrypt_message(flat, m, key).cpu().numpy()
+    wrong = int((dec != want).sum())
+    check(wrong == 0, f"{wrong}/{want.size} {what} outputs decrypt wrong")
+    half = 2 ** 31 // m // 2
+    sig, std, worst = margin_sigmas(
+        cipher.lwe_phase(flat, key).cpu().numpy(),
+        cipher.encode_message(want, m).astype(np.int64), half)
+    print(f"   {what}: {want.size}/{want.size} right, phase noise std "
+          f"2^{np.log2(std):.2f}, max |dev| 2^{np.log2(worst + 1):.2f}, "
+          f"margin {sig:.1f} sigma of the 2^{np.log2(half):.0f} "
+          f"half-segment", flush=True)
+    check(sig >= floor, f"{what} noise margin {sig:.1f} sigma below {floor}")
+    return sig
+
+
+def circuits_phase(gen, p, ck, sk) -> dict:
+    """Phase 13: the boolean circuit library on phase 4's keys, batch
+    BATCH: NOT, COPY and constant (no launches); MUX on the 8 (sel, then,
+    else) combinations tiled (2 bootstraps without key switch, then one
+    key switch); MUX_3GATE on the same inputs (3 gate bootstraps); the
+    8-bit boolean ripple-carry add (40 gate bootstraps); the 8-bit many-LUT
+    ripple add (8 many-LUT bootstraps).  Each: every output against its
+    plain truth, exact launch counts, margins, time and rate."""
+    n = p.lwe_n
+    out = {}
+    combos = np.asarray(list(np.ndindex(2, 2, 2)), bool)
+    sel, then, other = (np.resize(combos[:, i], BATCH) for i in range(3))
+    c_sel, c_then, c_else = (cipher.lwe_encrypt_bool(
+        gen, torch.from_numpy(x), p.lwe_alpha, sk.lv0)
+        for x in (sel, then, other))
+
+    def no_launch():
+        return (gates.NOT(c_sel), gates.COPY(c_then),
+                gates.constant(p, True, (BATCH,), device=c_sel.device),
+                gates.constant(p, other, (BATCH,), device=c_sel.device))
+    (c_not, c_copy, c_true, c_const), _, launches = timed_run(
+        "NOT, COPY, constant", no_launch)
+    check_counts(launches, {}, 0)
+    bool_margin(c_not, sk.lv0, ~sel, "NOT")
+    bool_margin(c_copy, sk.lv0, then, "COPY")
+    check(torch.equal(c_copy, c_then) and c_copy.data_ptr() != c_then.data_ptr(),
+          "COPY is not a copy")
+    for ct, truth in ((c_true, np.ones(BATCH, bool)), (c_const, other)):
+        body = torch.from_numpy(np.where(truth, T_EIGHTH, 1 - T_EIGHTH)
+                                .astype(np.uint32).view(np.int32))
+        check(not ct[:, :n].any().item() and torch.equal(ct[:, n].cpu(), body)
+              and torch.equal(cipher.lwe_decrypt_bool(ct, sk.lv0).cpu(),
+                              torch.from_numpy(truth)),
+              "a constant is not the trivial ciphertext of its value")
+    print(f"   NOT, COPY: {BATCH}/{BATCH} right; constants trivial and right",
+          flush=True)
+
+    want = np.where(sel, then, other)
+    mux, secs, launches = timed_run(
+        "MUX batch", lambda: gates.MUX(ck, c_sel, c_then, c_else))
+    check_counts(launches, dict.fromkeys(K1K2, n), 2)
+    sig = bool_margin(mux, sk.lv0, want, "MUX")
+    out["mux"] = {"batch_s": secs, "mux_per_s": BATCH / secs,
+                  "margin_sigmas": sig, "launches": launches}
+    print(f"   MUX/s {BATCH / secs:.1f}", flush=True)
+    mux3, secs, launches = timed_run(
+        "MUX_3GATE batch", lambda: gates.MUX_3GATE(ck, c_sel, c_then,
+                                                   c_else))
+    check_counts(launches, dict.fromkeys(K1K2, n), 3)
+    sig = bool_margin(mux3, sk.lv0, want, "MUX_3GATE")
+    check(torch.equal(cipher.lwe_decrypt_bool(mux3, sk.lv0),
+                      cipher.lwe_decrypt_bool(mux, sk.lv0)),
+          "MUX_3GATE and MUX decrypt differently")
+    out["mux_3gate"] = {"batch_s": secs, "mux_per_s": BATCH / secs,
+                        "margin_sigmas": sig, "launches": launches}
+    print(f"   MUX_3GATE/s {BATCH / secs:.1f}", flush=True)
+
+    rng = np.random.default_rng(13)
+    va, vb = rng.integers(0, 256, (2, BATCH))
+    bits_a = np.stack([bitutils.to_bits(v, 8) for v in va])
+    bits_b = np.stack([bitutils.to_bits(v, 8) for v in vb])
+    total = va + vb
+    sum_bits = np.stack([bitutils.to_bits(v, 8) for v in total])
+    ca = bitutils.encrypt_bits(gen, bits_a, p.lwe_alpha, sk.lv0)
+    cb = bitutils.encrypt_bits(gen, bits_b, p.lwe_alpha, sk.lv0)
+    (s_bits, carry), secs, launches = timed_run(
+        "8-bit ripple_carry_add batch",
+        lambda: adders.ripple_carry_add(ck, ca, cb))
+    check_counts(launches, dict.fromkeys(K1K2, n), 40)
+    sig = bool_margin(s_bits, sk.lv0, sum_bits, "ripple_carry_add sum bits")
+    bool_margin(carry, sk.lv0, total >= 256, "ripple_carry_add carry")
+    dec = bitutils.decrypt_bits(s_bits, sk.lv0).cpu().numpy()
+    cdec = cipher.lwe_decrypt_bool(carry, sk.lv0).cpu().numpy()
+    got = [bitutils.from_bits(r) + (int(c) << 8) for r, c in zip(dec, cdec)]
+    check(np.array_equal(got, total), "an 8-bit ripple sum is not a + b")
+    out["ripple_carry_add"] = {"batch_s": secs, "adds_per_s": BATCH / secs,
+                               "margin_sigmas": sig, "launches": launches}
+    print(f"   8-bit ripple adds/s {BATCH / secs:.1f}", flush=True)
+    profile_batch("8-bit ripple_carry_add",
+                  lambda: adders.ripple_carry_add(ck, ca, cb))
+
+    ma = bitutils.encrypt_bits_messages(gen, bits_a, p.lwe_alpha, sk.lv0)
+    mb = bitutils.encrypt_bits_messages(gen, bits_b, p.lwe_alpha, sk.lv0)
+    (m_bits, m_carry), secs, launches = timed_run(
+        "8-bit ripple_add_manylut batch",
+        lambda: adders.ripple_add_manylut(ck, ma, mb))
+    check_counts(launches, dict.fromkeys(K1K2, n), 8)
+    sig = message_margin(m_bits, sk.lv0, sum_bits.astype(np.int64), 8,
+                         "ripple_add_manylut sum bits", MANY_LUT_MIN_SIGMAS)
+    message_margin(m_carry, sk.lv0, (total >= 256).astype(np.int64), 8,
+                   "ripple_add_manylut carry", MANY_LUT_MIN_SIGMAS)
+    out["ripple_add_manylut"] = {
+        "batch_s": secs, "adds_per_s": BATCH / secs,
+        "full_adders_per_s": 8 * BATCH / secs, "margin_sigmas": sig,
+        "launches": launches}
+    print(f"   many-LUT 8-bit adds/s {BATCH / secs:.1f}, full adders/s "
+          f"{8 * BATCH / secs:.1f}", flush=True)
+    return out
+
+
+def uint5_phase(gen, dev) -> dict:
+    """Phase 14: uint5 (lwe_n 1071, N 2048, three digit limbs) on the
+    card: keygen; ``add8_pbs`` on U5_BATCH random pairs of 8-bit numbers
+    (3 bootstraps, K1 + K2), every sum against (a + b) mod 256, margin
+    against the 2^25 half-segment; PBS_PLAIN_CHECK pairs through the plain
+    versions, word for word; ``comparators.ge``, ``lt`` and ``eq`` (m 32)
+    on every pair of [0, 16)^2, tiled to U5_BATCH."""
+    p, m = U5, U5.message_modulus
+    n = p.lwe_n
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sk = keys.gen_secret_key(gen, p, dev)
+    ck = keys.gen_cloud_key(gen, sk, p)
+    keygen_s = done(t0, "keygen ")
+    keygen_peak = torch.cuda.max_memory_allocated()
+    print(f"   ksk {ck.ksk.numel() * 4} B, bands {ck.bands.numel() * 4} B; "
+          f"keygen peak memory {keygen_peak} B", flush=True)
+    out = {"keygen_s": keygen_s, "keygen_peak_bytes": keygen_peak}
+
+    rng = np.random.default_rng(14)
+    va, vb = rng.integers(0, 256, (2, U5_BATCH))
+    nib = [cipher.lwe_encrypt_message(gen, v, m, p.lwe_alpha, sk.lv0)
+           for v in (va & 0xF, va >> 4, vb & 0xF, vb >> 4)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (s_lo, s_hi), secs, launches = timed_run(
+        "add8_pbs batch", lambda: adders.add8_pbs(ck, *nib))
+    peak = torch.cuda.max_memory_allocated()
+    check_counts(launches, dict.fromkeys(K1K2, n), 3)
+    lo = (va & 0xF) + (vb & 0xF)
+    want_lo, want_hi = lo % 16, ((va >> 4) + (vb >> 4) + (lo >= 16)) % 16
+    sig = min(message_margin(s_lo, sk.lv0, want_lo, m, "add8_pbs low nibble",
+                             U5_MIN_SIGMAS),
+              message_margin(s_hi, sk.lv0, want_hi, m, "add8_pbs high nibble",
+                             U5_MIN_SIGMAS))
+    got = ((cipher.lwe_decrypt_message(s_hi, m, sk.lv0).cpu().numpy() << 4)
+           | cipher.lwe_decrypt_message(s_lo, m, sk.lv0).cpu().numpy())
+    check(np.array_equal(got, (va + vb) % 256),
+          "an add8_pbs sum is not (a + b) mod 256")
+    print(f"   add8_pbs adds/s {U5_BATCH / secs:.1f}; peak memory {peak} B",
+          flush=True)
+    out["add8_pbs"] = {"batch_s": secs, "adds_per_s": U5_BATCH / secs,
+                       "margin_sigmas": sig, "peak_bytes": peak,
+                       "launches": launches}
+
+    t1 = time.perf_counter()
+    k = PBS_PLAIN_CHECK
+    lut_sum, lut_carry = adders.make_adder_luts(ck)
+    a_lo, a_hi, b_lo, b_hi = (c[:k] for c in nib)
+    plain_lo = engine.bootstrap(ck, a_lo + b_lo, testvec=lut_sum, plain=True)
+    carry = engine.bootstrap(ck, a_lo + b_lo, testvec=lut_carry, plain=True)
+    plain_hi = engine.bootstrap(ck, a_hi + b_hi + carry, testvec=lut_sum,
+                                plain=True)
+    check(torch.equal(plain_lo, s_lo[:k]) and torch.equal(plain_hi, s_hi[:k]),
+          "add8_pbs: the kernel path disagrees with the plain path")
+    check(cuda_t.launch_counts == launches, "the plain path launched a kernel")
+    done(t1, f"{k} add8_pbs pairs bit-equal through the plain path; ")
+    profile_batch("add8_pbs uint5", lambda: adders.add8_pbs(ck, *nib))
+
+    pairs = np.asarray(list(np.ndindex(16, 16)))
+    a, b = (np.resize(pairs[:, i], U5_BATCH) for i in range(2))
+    ct_a, ct_b = (cipher.lwe_encrypt_message(gen, v, m, p.lwe_alpha, sk.lv0)
+                  for v in (a, b))
+    out["comparators"] = {}
+    for name, truth, per in (("ge", a >= b, 1), ("lt", a < b, 1),
+                             ("eq", a == b, 3)):
+        res, secs, launches = timed_run(
+            f"comparators.{name} batch",
+            lambda: getattr(comparators, name)(ck, ct_a, ct_b, m))
+        check_counts(launches, dict.fromkeys(K1K2, n), per)
+        sig = bool_margin(res, sk.lv0, truth, f"comparators.{name}")
+        out["comparators"][name] = {
+            "batch_s": secs, "comparisons_per_s": U5_BATCH / secs,
+            "margin_sigmas": sig, "launches": launches}
+        print(f"   {name} comparisons/s {U5_BATCH / secs:.1f}", flush=True)
+    return out
+
+
+def proxy_phase(gen, dev, p) -> dict:
+    """Phase 15: proxy re-encryption at p's level-0 parameters
+    (128bit_fast: lwe_n 700, basebit 2, t 9): three users' keys made on
+    the card, a public key, a symmetric and an asymmetric re-encryption
+    key; PROXY_BATCH bits re-encrypted through each and through a 3-hop
+    chain of symmetric keys (alice -> bob -> carol -> alice); every output
+    decrypted under its target key (the asymmetric key within its design
+    margin, ASYM_MIN_SIGMAS); PROXY_CPU_CHECK ciphertexts of each key
+    through the same function on CPU copies, word for word."""
+    users = [keys.gen_secret_key(gen, p, dev).lv0 for _ in range(3)]
+    alice, bob, carol = users
+    out = {}
+    t0 = time.perf_counter()
+    pk_bob = proxyreenc.gen_public_key(gen, bob, p)
+    out["public_key_s"] = done(t0, "public key ")
+    t0 = time.perf_counter()
+    rk_sym = proxyreenc.gen_reencryption_key_symmetric(gen, alice, bob, p)
+    out["symmetric_key_s"] = done(t0, "symmetric re-encryption key ")
+    t0 = time.perf_counter()
+    rk_asym = proxyreenc.gen_reencryption_key_asymmetric(gen, alice, pk_bob,
+                                                         p)
+    out["asymmetric_key_s"] = done(t0, "asymmetric re-encryption key ")
+    rk_bc = proxyreenc.gen_reencryption_key_symmetric(gen, bob, carol, p)
+    rk_ca = proxyreenc.gen_reencryption_key_symmetric(gen, carol, alice, p)
+    print(f"   table {rk_sym.table.numel() * 4} B "
+          f"{tuple(rk_sym.table.shape)}", flush=True)
+
+    bits = np.random.default_rng(15).integers(0, 2, PROXY_BATCH).astype(bool)
+    ct = cipher.lwe_encrypt_bool(gen, torch.from_numpy(bits), p.lwe_alpha,
+                                 alice)
+    ct_pk = proxyreenc.pk_encrypt_bool(gen, pk_bob, bits, p.lwe_alpha)
+    bool_margin(ct_pk, bob, bits, "public-key encryption")
+    proxyreenc.reencrypt(rk_sym, ct)                       # warm-up
+    for label, rk, floor, max_wrong in (
+            ("symmetric", rk_sym, MIN_SIGMAS, 0),
+            ("asymmetric", rk_asym, ASYM_MIN_SIGMAS, ASYM_MAX_WRONG)):
+        res, secs, launches = timed_run(
+            f"reencrypt {label}", lambda: proxyreenc.reencrypt(rk, ct))
+        check_counts(launches, {}, 0)
+        sig = bool_margin(res, bob, bits, f"reencrypt {label}", floor,
+                          max_wrong)
+        cpu = proxyreenc.reencrypt(
+            proxyreenc.ProxyReencryptionKey(rk.table.cpu(), rk.basebit,
+                                            rk.t), ct[:PROXY_CPU_CHECK].cpu())
+        check(torch.equal(cpu, res[:PROXY_CPU_CHECK].cpu()),
+              f"reencrypt {label}: the card disagrees with the CPU")
+        print(f"   {PROXY_CPU_CHECK} re-encryptions equal to the CPU's; "
+              f"re-encryptions/s {PROXY_BATCH / secs:.1f}", flush=True)
+        out[label] = {"batch_s": secs, "reencryptions_per_s":
+                      PROXY_BATCH / secs, "margin_sigmas": sig}
+    chain, secs, _ = timed_run("3-hop chain", lambda: proxyreenc.reencrypt(
+        rk_ca, proxyreenc.reencrypt(rk_bc, proxyreenc.reencrypt(rk_sym,
+                                                                 ct))))
+    out["three_hop"] = {"batch_s": secs, "margin_sigmas": bool_margin(
+        chain, alice, bits, "3-hop chain back to alice")}
+    return out
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="one more warm batch of each path of phases 5 and "
-                    "7-12 under torch.profiler (kernel breakdown, idle)")
+                    help="one more warm batch of each path of phases 5, "
+                    "7-12, the 8-bit ripple add and add8_pbs under "
+                    "torch.profiler (kernel breakdown, idle)")
     args = ap.parse_args()
     global PROFILE
     PROFILE = args.profile
@@ -1200,6 +1544,25 @@ def main() -> int:
               f"{fig['margin_sigmas']:.1f} sigma", flush=True)
     done(t0)
 
+    t0 = phase(f"13. boolean circuits at {p.name}, batch {BATCH}: NOT, "
+               "COPY, constant, MUX, MUX_3GATE, 8-bit ripple-carry and "
+               "many-LUT adds")
+    torch.cuda.empty_cache()
+    circ = circuits_phase(gen, p, ck, sk)
+    circuits_s = done(t0)
+
+    t0 = phase(f"14. {U5.name} on the card: add8_pbs and comparators, batch "
+               f"{U5_BATCH}")
+    torch.cuda.empty_cache()
+    u5 = uint5_phase(gen, dev)
+    done(t0)
+
+    t0 = phase(f"15. proxy re-encryption at {p.name}'s level 0, batch "
+               f"{PROXY_BATCH}")
+    torch.cuda.empty_cache()
+    proxy = proxy_phase(gen, dev, p)
+    done(t0)
+
     runs = {"nand": launches, "and_or": and_or_launches,
             "uint6_centered": u6["launches"],
             "uint7_centered": u7["launches"],
@@ -1207,7 +1570,12 @@ def main() -> int:
             "block_nand": blk["block"]["launches"],
             "block_key_per_bit_nand": blk["per_bit"]["launches"],
             **{f"per_bit_{label}": fig["launches"]
-               for label, fig in per_bit.items()}}
+               for label, fig in per_bit.items()},
+            **{f"circuits_{label}": fig["launches"]
+               for label, fig in circ.items()},
+            "uint5_add8_pbs": u5["add8_pbs"]["launches"],
+            **{f"uint5_{name}": fig["launches"]
+               for name, fig in u5["comparators"].items()}}
     u6p, u8p = params.UINT6_CENTERED, params.UINT8_CENTERED
     # name: (source, TPU kernel, the timed shape: profile, batch, rows)
     kernels = {
@@ -1245,6 +1613,10 @@ def main() -> int:
                         "rotate_decompose_t", params.P128, BATCH, 0),
                     f"rotate_decompose_t {params.UINT4.name} B=2048": (
                         "rotate_decompose_t", params.UINT4, 2048, 0),
+                    f"rotate_decompose_t {U5.name} B={U5_BATCH}": (
+                        "rotate_decompose_t", U5, U5_BATCH, 0),
+                    f"extprod_t {U5.name} B={U5_BATCH}": (
+                        "extprod_t", U5, U5_BATCH, 0),
                     f"rotate_decompose_ext_t {params.UINT6_CENTERED.name} "
                     f"B={UINT6_BATCH}, eager loop": (
                         "rotate_decompose_ext_t", params.UINT6_CENTERED,
@@ -1288,6 +1660,17 @@ def main() -> int:
         "per_bit_routes": {label: {k: v for k, v in fig.items()
                                    if k != "launches"}
                            for label, fig in per_bit.items()},
+        "circuits": {"phase_s": circuits_s, **{
+            label: {k: v for k, v in fig.items() if k != "launches"}
+            for label, fig in circ.items()}},
+        "uint5": {"keygen_s": u5["keygen_s"],
+                  "keygen_peak_bytes": u5["keygen_peak_bytes"],
+                  "add8_pbs": {k: v for k, v in u5["add8_pbs"].items()
+                               if k != "launches"},
+                  "comparators": {name: {k: v for k, v in fig.items()
+                                         if k != "launches"}
+                                  for name, fig in u5["comparators"].items()}},
+        "proxy_reencryption": proxy,
         "kernel_shape_times": shape_times,
         "path_launches": runs}))
     print(json.dumps({"ok": True, "device": {

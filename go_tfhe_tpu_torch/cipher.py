@@ -1,5 +1,5 @@
-"""Ciphertexts: encryption, decryption, phase, message encoding (port of
-``go_tfhe_tpu/cipher.py:38-98, 126-191``).
+"""Ciphertexts: encryption, decryption, phase, message encoding, the linear
+operations (port of ``go_tfhe_tpu/cipher.py:38-191``).
 
 Layouts as in the JAX package, words as int32:
 
@@ -99,6 +99,32 @@ def lwe_decrypt_message(ct: torch.Tensor, modulus: int,
     return (decoded % modulus).to(torch.int32)
 
 
+# Linear ops (tlwe/tlwe.go:76-134): int32 words wrap mod 2^32 as uint32 do.
+# A multiplier is taken mod 2^32 as the int32 word with the same bits
+# (utils.torus.i32), as every torus constant of the port is.
+
+def lwe_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a + b
+
+
+def lwe_sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a - b
+
+
+def lwe_neg(a: torch.Tensor) -> torch.Tensor:
+    return -a
+
+
+def lwe_add_mul(a: torch.Tensor, b: torch.Tensor, multiplier: int
+                ) -> torch.Tensor:
+    return a + b * i32(multiplier)
+
+
+def lwe_sub_mul(a: torch.Tensor, b: torch.Tensor, multiplier: int
+                ) -> torch.Tensor:
+    return a - b * i32(multiplier)
+
+
 # ---------------------------------------------------------------------------
 # TRLWE and TRGSW.
 # ---------------------------------------------------------------------------
@@ -121,6 +147,24 @@ def trlwe_encrypt_torus(gen: torch.Generator, mu: torch.Tensor, alpha: float,
         noisy_mu = (noisy_mu + (1 << (grid_bits - 1))) & keep
     b = noisy_mu + negacyclic_mul_binary(a, key)
     return torch.stack([a, b], dim=-2)
+
+
+def trlwe_phase(ct: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
+    """B - A * s: (..., 2, N) -> (..., N)."""
+    return ct[..., 1, :] - negacyclic_mul_binary(ct[..., 0, :], key)
+
+
+def trlwe_encrypt_bool(gen: torch.Generator, bits, alpha: float,
+                       key: torch.Tensor) -> torch.Tensor:
+    """Bits (..., N) in the +-1/8 encoding -> (..., 2, N)."""
+    bits = torch.as_tensor(bits, dtype=torch.bool, device=key.device)
+    mu = torch.where(bits, BOOL_TRUE_MU, BOOL_FALSE_MU).to(TORUS)
+    return trlwe_encrypt_torus(gen, mu, alpha, key)
+
+
+def trlwe_decrypt_bool(ct: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
+    """Sign of each phase coefficient (trlwe/trlwe.go:66-81)."""
+    return trlwe_phase(ct, key) >= 0
 
 
 def trgsw_encrypt_torus(gen: torch.Generator, p_torus: torch.Tensor,

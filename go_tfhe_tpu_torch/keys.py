@@ -158,6 +158,15 @@ def gen_cloud_key(gen: torch.Generator, sk: SecretKey, p: TFHEParams
                       sk.block_binary)
 
 
+def gen_cloud_key_no_ksk(p: TFHEParams, device="cuda") -> CloudKey:
+    """All-zero KSK and BSK, for tests (cloudkey/cloudkey.go:34-57); the
+    bands built from the zero BSK as :func:`gen_cloud_key` builds them."""
+    ksk = torch.zeros((p.n, p.iks_t, p.base, p.lwe_n + 1), dtype=TORUS,
+                      device=device)
+    bsk = torch.zeros((p.lwe_n, 2 * p.l, 2, p.n), dtype=TORUS, device=device)
+    return _cloud_key(p, gen_testvec(p, device), ksk, bsk, False)
+
+
 # ---------------------------------------------------------------------------
 # Conversion from the JAX package's arrays, and .npz files.
 # ---------------------------------------------------------------------------

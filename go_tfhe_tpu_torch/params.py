@@ -338,3 +338,31 @@ def get_params(name: str) -> TFHEParams:
         raise KeyError(
             f"unknown parameter profile {name!r}; available: "
             f"{sorted(set(p.name for p in PROFILES.values()))}") from None
+
+
+def security_info(p: TFHEParams) -> str:
+    """Human-readable description (params/params.go:639-666); the JAX
+    package's strings word for word (``go_tfhe_tpu/params.py:482-506``)."""
+    descs = {
+        "80bit": "80-bit security (performance-optimized)",
+        "110bit": "110-bit security (balanced, original TFHE)",
+        "128bit": "128-bit security (high security, quantum-resistant)",
+    }
+    base = p.name
+    suffix = ""
+    if base.endswith("_fast"):
+        base = base[:-5]
+        suffix = (" [TPU-tuned CloudKey: bgbit=8/l=2 gadget, centered "
+                  "decomposition, on-grid q=2^24 BSK — same crypto "
+                  "parameters as the base profile, see SECURITY.md]")
+    elif base.endswith("_centered"):
+        base = base[:-9]
+        suffix = (" [centered gadget decomposition: zero-mean "
+                  "representation error, same crypto parameters]")
+    if base.startswith("uint"):
+        bits = base[4:]
+        return (f"Uint{bits} parameters ({bits}-bit messages, "
+                f"messageModulus={p.message_modulus}, N={p.n})" + suffix)
+    if base in descs:
+        return descs[base] + suffix
+    return f"{p.name} (custom profile)"

@@ -40,6 +40,11 @@ def torus_to_f64(t) -> np.float64:
     return np.asarray(t, dtype=np.uint64).astype(np.float64) / float(MOD32)
 
 
+def f64_to_torus_vec(d) -> np.ndarray:
+    """utils/utils.go:22-28."""
+    return f64_to_torus(np.asarray(d, dtype=np.float64))
+
+
 # ---------------------------------------------------------------------------
 # int32 words.
 # ---------------------------------------------------------------------------

@@ -101,37 +101,71 @@ def test_loader_raises_without_nvcc():
 
 @pytest.fixture(scope="module")
 def key_files(tmp_path_factory):
-    """The port's own TEST_FAST keys, made on the CPU and saved."""
-    from go_tfhe_tpu_torch import keys, params
+    """The port's own TEST_FAST keys, a public key and a re-encryption key,
+    made on the CPU and saved."""
+    from go_tfhe_tpu_torch import keys, params, proxyreenc
     from go_tfhe_tpu_torch.utils.torus import to_numpy_u32
     p = params.TEST_FAST
     gen = torch.Generator().manual_seed(1)
     sk = keys.gen_secret_key(gen, p, "cpu")
     ck = keys.gen_cloud_key(gen, sk, p)
+    pk = proxyreenc.gen_public_key(gen, sk.lv0, p)
+    rk = proxyreenc.gen_reencryption_key_symmetric(gen, sk.lv0, sk.lv0, p)
     d = tmp_path_factory.mktemp("keys")
     keys.save_cloud_key(str(d / "ck.npz"), ck)
     keys.save_secret_key(str(d / "sk.npz"), sk)
+    proxyreenc.save_public_key(str(d / "pk.npz"), pk)
+    proxyreenc.save_reencryption_key(str(d / "rk.npz"), rk)
     arrays = {f: to_numpy_u32(getattr(ck, f)) for f in ("testvec", "ksk",
                                                         "bsk")}
-    return p, ck, sk, str(d / "ck.npz"), str(d / "sk.npz"), arrays
+    arrays["pk"], arrays["rk"] = (to_numpy_u32(pk.encryptions),
+                                  to_numpy_u32(rk.table))
+    return (p, ck, sk, str(d / "ck.npz"), str(d / "sk.npz"), arrays,
+            pk, rk, str(d))
 
 
 def _entry_points(key_files):
-    from go_tfhe_tpu_torch import keys, lut
-    p, _, _, ck_path, sk_path, arrays = key_files
+    """Each entry point that makes tensors, called with the given keyword
+    arguments; the tensor it returns.  encrypt_bits and gen_public_key
+    follow their key, so they take a secret key loaded with ``device``."""
+    from go_tfhe_tpu_torch import bitutils, gates, keys, lut, proxyreenc
+    p, _, _, ck_path, sk_path, arrays, pk, rk, d = key_files
+    gen = torch.Generator().manual_seed(2)
+    lv0 = lambda **kw: keys.load_secret_key(sk_path, **kw).lv0  # noqa: E731
     return {
         "load_cloud_key": lambda **kw: keys.load_cloud_key(ck_path, **kw).bsk,
-        "load_secret_key": lambda **kw: keys.load_secret_key(sk_path,
-                                                             **kw).lv0,
+        "load_secret_key": lv0,
         "cloud_key_from_numpy": lambda **kw: keys.cloud_key_from_numpy(
             p, arrays["testvec"], arrays["ksk"], arrays["bsk"], **kw).bands,
         "gen_lut": lambda **kw: lut.Generator(p, **kw).gen_lut(
             lambda x: 1 - x),
+        "constant": lambda **kw: gates.constant(p, True, (3,), **kw),
+        "gen_cloud_key_no_ksk": lambda **kw: keys.gen_cloud_key_no_ksk(
+            p, **kw).bands,
+        "encrypt_bits": lambda **kw: bitutils.encrypt_bits(
+            gen, [True, False], p.lwe_alpha, lv0(**kw)),
+        "gen_public_key": lambda **kw: proxyreenc.gen_public_key(
+            gen, lv0(**kw), p).encryptions,
+        "load_public_key": lambda **kw: proxyreenc.load_public_key(
+            f"{d}/pk.npz", **kw).encryptions,
+        "load_reencryption_key": lambda **kw: proxyreenc.load_reencryption_key(
+            f"{d}/rk.npz", **kw).table,
+        "public_key_from_numpy": lambda **kw: proxyreenc.public_key_from_numpy(
+            arrays["pk"], **kw).encryptions,
+        "reencryption_key_from_numpy": lambda **kw: (
+            proxyreenc.reencryption_key_from_numpy(
+                arrays["rk"], rk.basebit, rk.t, **kw).table),
     }
 
 
-@pytest.mark.parametrize("name", ["load_cloud_key", "load_secret_key",
-                                  "cloud_key_from_numpy", "gen_lut"])
+ENTRY_POINTS = ["load_cloud_key", "load_secret_key", "cloud_key_from_numpy",
+                "gen_lut", "constant", "gen_cloud_key_no_ksk",
+                "encrypt_bits", "gen_public_key", "load_public_key",
+                "load_reencryption_key", "public_key_from_numpy",
+                "reencryption_key_from_numpy"]
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
 def test_entry_point_defaults_to_the_card(key_files, name):
     """Without ``device`` the tensors go to the card: on a torch without a
     CUDA device the call raises (as ``.to("cuda")`` does) and returns no
@@ -144,17 +178,20 @@ def test_entry_point_defaults_to_the_card(key_files, name):
             call()
 
 
-@pytest.mark.parametrize("name", ["load_cloud_key", "load_secret_key",
-                                  "cloud_key_from_numpy", "gen_lut"])
+@pytest.mark.parametrize("name", ENTRY_POINTS)
 def test_entry_point_on_the_host_when_asked(key_files, name):
     """With ``device="cpu"`` the calls give the host tensors they gave
     before: the saved keys' words, and the table on the CPU."""
-    p, ck, sk, _, _, _ = key_files
+    p, ck, sk, _, _, _, pk, rk, _ = key_files
     got = _entry_points(key_files)[name](device="cpu")
     assert got.device.type == "cpu"
     want = {"load_cloud_key": ck.bsk, "load_secret_key": sk.lv0,
-            "cloud_key_from_numpy": ck.bands}.get(name)
+            "cloud_key_from_numpy": ck.bands,
+            "load_public_key": pk.encryptions,
+            "public_key_from_numpy": pk.encryptions,
+            "load_reencryption_key": rk.table,
+            "reencryption_key_from_numpy": rk.table}.get(name)
     if want is not None:
         np.testing.assert_array_equal(got.numpy(), want.numpy())
-    else:
+    elif name == "gen_lut":
         assert got.shape == (2, p.n)
