@@ -42,7 +42,19 @@ entry points a user calls:
 * proxy re-encryption at ``128bit_fast``'s level 0 (no kernel: the key
   switch's digit contraction): keys made on the card, symmetric and
   asymmetric re-encryption of 4096 bits and a 3-hop chain, the card's
-  words against the CPU's.
+  words against the CPU's;
+* the batch-sharded bootstrap (``parallel``) on the first NAND batch: a
+  mesh of every card and a mesh naming the card 4 times (shards of 1024),
+  each equal to the unsharded words with 700 K1/K2 launches a shard,
+  ``sharded_bootstrap_cuda`` without the key switch, and with two cards
+  or more a shard on the last card while card 0 is current;
+* the cost model (``utils.profiling``) at ``128bit_fast``: speed of light
+  and utilization of the measured NAND rate (0 < mfu <= 1), the key's
+  memory, and a warm NAND batch under ``trace`` whose Chrome trace names
+  K1 and K2;
+* the five example programs (``examples/torch_*.py``) through their
+  ``main`` at full profiles (``128bit_fast``; ``uint5`` for the PBS and
+  the nibble adder), each right with its exact K1/K2 launches.
 
 Before that it builds the nine Hopper kernels from
 ``go_tfhe_tpu_torch/csrc/`` and holds each against its plain PyTorch
@@ -65,23 +77,30 @@ two lines are a JSON object describing each kernel and then
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import glob
+import importlib.util
+import io
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from go_tfhe_tpu_torch import (bitutils, cipher, engine, gates, keys, lut,
-                               params, proxyreenc)
+                               parallel, params, proxyreenc)
 from go_tfhe_tpu_torch.models import adders, comparators
 from go_tfhe_tpu_torch.ops import (_build, blindrotate, cuda_ext, cuda_ext_t,
                                    cuda_extprod, cuda_pipe, cuda_rotate,
                                    cuda_step, cuda_t)
 from go_tfhe_tpu_torch.ops.blindrotate import block_bands
+from go_tfhe_tpu_torch.utils import profiling
 from go_tfhe_tpu_torch.utils.torus import f64_to_torus
 from rotdec_times import graph_ms
 
@@ -122,11 +141,19 @@ K6K8 = ("rotate_decompose_ext", "extprod")
 K7K8 = ("rotate_decompose", "extprod")
 PIPE_HALF = BATCH // 2
 PROFILE = False           # set by --profile
-# The least time of a kernel call (PERF.md §6): the bytes it must move over
-# the H100 SXM's HBM3 rate, or its int8 tensor-core operations over the
-# dense int8 peak (NVIDIA's data sheet), whichever is larger.
-HBM_BYTES_PER_S = 3.35e12
-INT8_OPS_PER_S = 1979e12
+MESH_COPIES = 4
+# The five example programs (examples/torch_*.py) at the full profiles
+# their docstrings name for a real run, and the K1 and K2 launches of each:
+# 8 gate bootstraps (6 gates and MUX's 2) x 700 steps; 7 PBS x 1071; 3 PBS
+# x 1071 + 40 gate bootstraps x 700; 8 many-LUT bootstraps x 700; none.
+EXAMPLES = (
+    ("torch_simple_gates", ["--profile", "128bit_fast"], 8 * 700),
+    ("torch_programmable_bootstrap", ["--profile", "uint5"], 7 * 1071),
+    ("torch_add_two_numbers", ["--profile", "uint5", "--bool-profile",
+                               "128bit_fast"], 3 * 1071 + 40 * 700),
+    ("torch_manylut_adder", ["--profile", "128bit_fast"], 8 * 700),
+    ("torch_proxy_reencryption", ["--profile", "128bit_fast"], 0),
+)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -259,14 +286,14 @@ def check_counts(launches: dict, per_call: dict, calls: int) -> None:
 def kernel_bound(name: str, p, b: int, rows: int = 0) -> tuple:
     """(bound_ms, bound_by) of one call of kernel ``name`` at profile p and
     batch b (each half's for K9; rows: the digit rows of a K7/K8 step, 2L
-    by default).  Bytes: each input read once, each output written once.
-    Operations: 2 per multiply-add of an int8 digit limb and an int8 key
-    limb whose weight is below 2^32 (the TPU kernels' limb pairs; the
-    lowest ``kernel_limb_drop`` key limbs are dropped)."""
+    by default): the larger of the bytes it must move (each input read
+    once, each output written once) over the H100's HBM3 rate, and its
+    int8 tensor-core operations (2 per multiply-add of the cost model's
+    ``profiling.limb_pairs``) over the dense int8 peak, both from
+    ``profiling.H100_PEAKS``."""
+    peak = profiling.H100_PEAKS["h100"]
     n, l2, nd, k = p.n, 2 * p.l, p.digit_limbs, p.poly_extend_factor
     rows = rows or l2
-    lo = cuda_t.band_limb_drop(p)
-    pairs = sum(1 for i in range(nd) for j in range(lo, 4) if i + j < 4)
     acc = 2 * k * n * b * 4                     # one accumulator, words
     band = 2 * rows * 2 * n * 4
     macs = 0
@@ -285,8 +312,9 @@ def kernel_bound(name: str, p, b: int, rows: int = 0) -> tuple:
         macs = 2 * n * b * rows * n                               # digits
     else:
         raise ValueError(name)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * macs * pairs / INT8_OPS_PER_S * 1e3
+    t_bytes = nbytes / (peak["hbm_gbps"] * 1e9) * 1e3
+    ops = 2 * macs * profiling.limb_pairs(p)
+    t_ops = ops / (peak["int8_tops"] * 1e12) * 1e3
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
@@ -1340,6 +1368,113 @@ def proxy_phase(gen, dev, p) -> dict:
     return out
 
 
+def mesh_phase(dev, p, ck, ct_a, ct_b, want, base_rate: float) -> dict:
+    """Phase 16: phase 5's NAND batch through ``parallel``: a mesh of every
+    card and a mesh naming ``dev`` MESH_COPIES times (shards of
+    BATCH/MESH_COPIES), each equal to phase 5's words with 700 K1/K2
+    launches a shard; ``sharded_bootstrap_cuda`` without the key switch
+    equal to ``engine.bootstrap_without_key_switch``; with two cards or
+    more, a shard on the last card while card 0 is current."""
+    prepared = engine.prepare_nand(ct_a, ct_b)
+    per_shard = dict.fromkeys(K1K2, p.lwe_n)
+    out = {}
+    for label, mesh in (
+            ("every card", parallel.make_mesh()),
+            (f"{dev} x {MESH_COPIES}", parallel.make_mesh([dev] * MESH_COPIES))):
+        res, secs, launches = timed_run(
+            f"sharded_bootstrap, {len(mesh)} shard(s) ({label})",
+            lambda: parallel.sharded_bootstrap(mesh, ck, prepared))
+        check_counts(launches, per_shard, len(mesh))
+        check(torch.equal(res, want),
+              f"the mesh ({label}) disagrees with phase 5's words")
+        print(f"   {label}: {BATCH / secs:.1f} gates/s (phase 5 steady "
+              f"{base_rate:.1f})", flush=True)
+        out[label] = {"shards": len(mesh), "batch_s": secs,
+                      "gates_per_s": BATCH / secs, "launches": launches}
+    mesh = parallel.make_mesh([dev] * MESH_COPIES)
+    res, secs, launches = timed_run(
+        "sharded_bootstrap_cuda without the key switch",
+        lambda: parallel.sharded_bootstrap_cuda(mesh, ck, prepared,
+                                                key_switch=False))
+    check_counts(launches, per_shard, len(mesh))
+    check(torch.equal(res, engine.bootstrap_without_key_switch(ck, prepared)),
+          "sharded_bootstrap_cuda(key_switch=False) disagrees with "
+          "engine.bootstrap_without_key_switch")
+    out["cuda_no_key_switch"] = {"batch_s": secs, "launches": launches}
+    if torch.cuda.device_count() >= 2:
+        last = torch.device("cuda", torch.cuda.device_count() - 1)
+        with torch.cuda.device(0):
+            res, secs, launches = timed_run(
+                f"one shard on {last} with cuda:0 current",
+                lambda: parallel.sharded_bootstrap(
+                    parallel.make_mesh([last]), ck, prepared))
+        check_counts(launches, per_shard, 1)
+        check(torch.equal(res, want), f"the shard on {last} disagrees")
+        out["cross_card"] = {"device": str(last), "batch_s": secs}
+    else:
+        print("   cross-card launch not measured: one card on this machine",
+              flush=True)
+    return out
+
+
+def cost_model_phase(p, ck, ct_a, ct_b, rate: float) -> dict:
+    """Phase 17: ``utils.profiling`` at p against phase 5's steady rate
+    (0 < mfu <= 1: more would mean the model counts less work than the
+    card did), the key's memory against its tensors, and one warm NAND
+    batch under ``trace`` whose Chrome trace must name K1 and K2."""
+    print(profiling.speed_of_light_report(p, rate), flush=True)
+    util = profiling.bootstrap_utilization(p, rate)
+    print(f"   bootstrap_utilization: {json.dumps(util)}", flush=True)
+    check(0 < util["mfu"] <= 1, f"mfu {util['mfu']} outside (0, 1]")
+    mem = profiling.key_memory_usage(ck)
+    print(f"   key_memory_usage: {json.dumps(mem)}", flush=True)
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (ck.testvec, ck.ksk, ck.bsk, ck.bands))
+    check(mem["total"] == nbytes,
+          f"key_memory_usage total {mem['total']} != {nbytes} bytes")
+    with tempfile.TemporaryDirectory() as d:
+        t1 = time.perf_counter()
+        with profiling.trace(d):
+            gates.NAND(ck, ct_a, ct_b)
+        scope_s = time.perf_counter() - t1
+        files = glob.glob(os.path.join(d, "*.json"))
+        check(len(files) == 1, f"trace wrote {files}")
+        with open(files[0]) as f:
+            text = f.read()
+    for kernel in ("rotdec_col::rotdec_kernel", "extprod_t_kernel"):
+        check(kernel in text, f"the trace names no {kernel}")
+    print(f"   trace: {len(text)} bytes, names K1 and K2; the scope "
+          f"(profiler start, one batch, export) {scope_s:.3f} s", flush=True)
+    return {**util, "key_bytes": mem["total"], "trace_scope_s": scope_s}
+
+
+def examples_phase() -> dict:
+    """Phase 18: each example program's ``main`` on the card (its output
+    kept, printed on failure); each must return 0 with its K1/K2 launch
+    counts."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    for name, argv, steps in EXAMPLES:
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(root, "examples", f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        log = io.StringIO()
+
+        def run():
+            with contextlib.redirect_stdout(log):
+                return mod.main([*argv, "--device", "cuda"])
+        rc, secs, launches = timed_run(f"{name} {' '.join(argv)}", run)
+        lines = log.getvalue().splitlines()
+        if rc:
+            print("\n".join(lines), flush=True)
+        check(rc == 0, f"{name} {' '.join(argv)} returned {rc}")
+        check_counts(launches, dict.fromkeys(K1K2, steps), 1)
+        print(f"   {name}: {lines[-1]}", flush=True)
+        out[name] = {"argv": argv, "seconds": secs, "launches": launches}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1563,6 +1698,22 @@ def main() -> int:
     proxy = proxy_phase(gen, dev, p)
     done(t0)
 
+    t0 = phase(f"16. the mesh: NAND batch of {BATCH} at {p.name} through "
+               "parallel.sharded_bootstrap")
+    torch.cuda.empty_cache()
+    mesh = mesh_phase(dev, p, ck, ct_a, ct_b, out, steady_rate)
+    mesh_s = done(t0)
+
+    t0 = phase(f"17. the cost model at {p.name}: speed of light, "
+               "utilization, key memory, trace")
+    cost = cost_model_phase(p, ck, ct_a, ct_b, steady_rate)
+    cost_s = done(t0)
+
+    t0 = phase("18. the five examples on the card")
+    torch.cuda.empty_cache()
+    ex = examples_phase()
+    examples_s = done(t0)
+
     runs = {"nand": launches, "and_or": and_or_launches,
             "uint6_centered": u6["launches"],
             "uint7_centered": u7["launches"],
@@ -1575,7 +1726,11 @@ def main() -> int:
                for label, fig in circ.items()},
             "uint5_add8_pbs": u5["add8_pbs"]["launches"],
             **{f"uint5_{name}": fig["launches"]
-               for name, fig in u5["comparators"].items()}}
+               for name, fig in u5["comparators"].items()},
+            **{f"mesh_{label}": fig["launches"]
+               for label, fig in mesh.items() if "launches" in fig},
+            **{f"example_{name}": fig["launches"]
+               for name, fig in ex.items()}}
     u6p, u8p = params.UINT6_CENTERED, params.UINT8_CENTERED
     # name: (source, TPU kernel, the timed shape: profile, batch, rows)
     kernels = {
@@ -1671,6 +1826,13 @@ def main() -> int:
                                          if k != "launches"}
                                   for name, fig in u5["comparators"].items()}},
         "proxy_reencryption": proxy,
+        "mesh": {"phase_s": mesh_s, **{
+            label: {k: v for k, v in fig.items() if k != "launches"}
+            for label, fig in mesh.items()}},
+        "cost_model": {"phase_s": cost_s, **cost},
+        "examples": {"phase_s": examples_s, **{
+            name: {k: v for k, v in fig.items() if k != "launches"}
+            for name, fig in ex.items()}},
         "kernel_shape_times": shape_times,
         "path_launches": runs}))
     print(json.dumps({"ok": True, "device": {

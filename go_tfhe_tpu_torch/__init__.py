@@ -24,10 +24,18 @@ Hopper counterpart.  The card runs ``128bit_fast``, ``uint5``
 (``add8_pbs`` and the comparators), ``uint6_centered``, ``uint7_centered``
 and ``uint8_centered``.  Keys, tables and constants made from arrays,
 files or values go to the card unless the caller passes ``device="cpu"``.
+
+Beside them: ``parallel`` (the batch-sharded bootstrap over a mesh of
+devices and the ranks of a ``torch.distributed`` process group, keys
+replicated), ``utils.profiling`` (the bootstrap's cost model against the
+H100's peaks, ``bootstrap_utilization``, key memory, a ``torch.profiler``
+trace scope), ``utils.metrics`` (JSON-line metric records) and
+``ops.sample_extract_to_lv0``.  ``examples/torch_*.py`` drive the public
+calls, one program for each of the JAX package's five examples.
 """
 
 from . import (bitutils, cipher, engine, gates, keys, lut, models, ops,
-               proxyreenc, utils)
+               parallel, proxyreenc, utils)
 from . import params as params_module
 from .cipher import (lwe_decrypt_bool, lwe_decrypt_message, lwe_encrypt_bool,
                      lwe_encrypt_message, lwe_encrypt_torus, lwe_phase)

@@ -1,7 +1,7 @@
 """Compute kernels: exact negacyclic arithmetic, decomposition, rotation,
 the blind-rotation step kernels (``cuda_t``, ``cuda_ext_t``, ``cuda_ext``,
 ``cuda_rotate``, ``cuda_extprod``), blind rotation, key switching and
-sample extraction."""
+sample extraction (to level 1, or to level 0 where N == lwe_n)."""
 
 from .blindrotate import (blind_rotate_block, blind_rotate_extended_rm,
                           blind_rotate_extended_t, blind_rotate_t,
@@ -15,4 +15,4 @@ from .polymul import (ext_band_from_trgsw, negacyclic_extprod_toeplitz,
                       negacyclic_mul_binary, split_balanced_limbs_i8,
                       split_signed_limbs_i8, toeplitz_from_band)
 from .rotate import monomial_mul, monomial_mul_log
-from .sample_extract import sample_extract
+from .sample_extract import sample_extract, sample_extract_to_lv0

@@ -28,9 +28,8 @@ import torch
 
 from ..params import TFHEParams
 from ..utils.torus import TORUS
-from . import _build
 from .cuda_ext_t import rotate_decompose_ext_t_ref
-from .cuda_t import RowPlan, _check, launch_counts, row_plan
+from .cuda_t import RowPlan, _check, launch, row_plan
 
 
 def rotate_decompose_ext_ref(p: TFHEParams, acc: torch.Tensor,
@@ -65,13 +64,7 @@ def rotate_decompose_ext(p: TFHEParams, acc: torch.Tensor,
     plan = rotdec_ext_plan(n, k, b)
     out = torch.empty((b, k * nd * 2 * p.l * n), dtype=torch.int8,
                       device=acc.device)
-    lib = _build.load_library()
-    with torch.cuda.device(acc.device):
-        rc = lib.tfhe_rotdec_ext(
-            acc.data_ptr(), amounts.data_ptr(), out.data_ptr(), n, k, b,
-            p.l, p.bgbit, p.decomposition_offset, nd, plan.threads,
-            torch.cuda.current_stream().cuda_stream)
-    if rc:
-        raise RuntimeError(f"rotdec_ext kernel launch failed: CUDA error {rc}")
-    launch_counts["rotate_decompose_ext"] += 1
+    launch("rotate_decompose_ext", "tfhe_rotdec_ext", acc.device,
+           acc.data_ptr(), amounts.data_ptr(), out.data_ptr(), n, k, b, p.l,
+           p.bgbit, p.decomposition_offset, nd, plan.threads)
     return out

@@ -33,10 +33,9 @@ import torch
 
 from ..params import TFHEParams
 from ..utils.torus import TORUS
-from . import _build
 from .cuda_t import (_TILE_WIDTHS, SMEM_LIMIT, RotdecPlan, _check,
                      check_tile, column_plan, extprod_t_mm, extprod_t_ref,
-                     launch_counts)
+                     launch)
 from .decompose import gadget_decompose
 from .polymul import split_signed_limbs_i8
 from .rotate import monomial_mul_blocks
@@ -109,17 +108,10 @@ def rotate_decompose_ext_t(p: TFHEParams, acc: torch.Tensor,
     out = torch.empty((k * nd * 2 * p.l * n, b), dtype=torch.int8,
                       device=acc.device)
     scratch = torch.empty_like(out) if plan.two_pass else None
-    lib = _build.load_library()
-    with torch.cuda.device(acc.device):
-        rc = lib.tfhe_rotdec_ext_t(
-            acc.data_ptr(), amounts.data_ptr(), out.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), n, k, b, p.l,
-            p.bgbit, p.decomposition_offset, nd, plan.tb,
-            torch.cuda.current_stream().cuda_stream)
-    if rc:
-        raise RuntimeError(
-            f"rotdec_ext_t kernel launch failed: CUDA error {rc}")
-    launch_counts["rotate_decompose_ext_t"] += 1
+    launch("rotate_decompose_ext_t", "tfhe_rotdec_ext_t", acc.device,
+           acc.data_ptr(), amounts.data_ptr(), out.data_ptr(),
+           None if scratch is None else scratch.data_ptr(), n, k, b, p.l,
+           p.bgbit, p.decomposition_offset, nd, plan.tb)
     return out
 
 
@@ -178,14 +170,7 @@ def extprod_ext_t(digits: torch.Tensor, band: torch.Tensor,
     _check("band", band, TORUS, (2, l2, 2 * n), acc.device)
     _check("digits", digits, torch.int8, (k * nd * l2 * n, b), acc.device)
     out = torch.empty_like(acc)
-    lib = _build.load_library()
-    with torch.cuda.device(acc.device):
-        rc = lib.tfhe_extprod_ext_t(
-            digits.data_ptr(), band.data_ptr(), acc.data_ptr(),
-            out.data_ptr(), n, k, b, l2, nd, lo,
-            torch.cuda.current_stream().cuda_stream)
-    if rc:
-        raise RuntimeError(
-            f"extprod_ext_t kernel launch failed: CUDA error {rc}")
-    launch_counts["extprod_ext_t"] += 1
+    launch("extprod_ext_t", "tfhe_extprod_ext_t", acc.device,
+           digits.data_ptr(), band.data_ptr(), acc.data_ptr(),
+           out.data_ptr(), n, k, b, l2, nd, lo)
     return out

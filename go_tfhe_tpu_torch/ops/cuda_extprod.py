@@ -26,8 +26,7 @@ from __future__ import annotations
 import torch
 
 from ..utils.torus import TORUS
-from . import _build
-from .cuda_t import (_check, check_tile, extprod_t_ref, launch_counts,
+from .cuda_t import (_check, check_tile, extprod_t_ref, launch,
                      toeplitz_limbs_i8)
 
 
@@ -62,15 +61,9 @@ def extprod(digits: torch.Tensor, band: torch.Tensor, acc: torch.Tensor,
     if digits.data_ptr() % 16:
         raise ValueError("extprod: digits must be 16-byte aligned")
     out = torch.empty_like(acc)
-    lib = _build.load_library()
-    with torch.cuda.device(acc.device):
-        rc = lib.tfhe_extprod(
-            digits.data_ptr(), band.data_ptr(), acc.data_ptr(),
-            out.data_ptr(), n, bp, rows, nd, lo,
-            torch.cuda.current_stream().cuda_stream)
-    if rc:
-        raise RuntimeError(f"extprod kernel launch failed: CUDA error {rc}")
-    launch_counts["extprod"] += 1
+    launch("extprod", "tfhe_extprod", acc.device, digits.data_ptr(),
+           band.data_ptr(), acc.data_ptr(), out.data_ptr(), n, bp, rows, nd,
+           lo)
     return out
 
 

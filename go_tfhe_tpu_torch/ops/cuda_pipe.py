@@ -23,10 +23,9 @@ import torch
 
 from ..params import TFHEParams
 from ..utils.torus import TORUS
-from . import _build
 from .blindrotate import mod_switch_2n
 from .cuda_t import (_check, band_limb_drop, check_tile, extprod_t_ref,
-                     launch_counts, rotate_decompose_t,
+                     launch, rotate_decompose_t,
                      rotate_decompose_t_ref)
 from .rotate import monomial_mul
 
@@ -75,17 +74,10 @@ def pipe_step(p: TFHEParams, digits_x: torch.Tensor, band: torch.Tensor,
     _check("amt_y", amt_y, torch.int32, (by,), dev)
     out_x = torch.empty_like(acc_x)
     dig_y = torch.empty((l2 * n, by), dtype=torch.int8, device=dev)
-    lib = _build.load_library()
-    with torch.cuda.device(dev):
-        rc = lib.tfhe_pipe_step(
-            digits_x.data_ptr(), band.data_ptr(), acc_x.data_ptr(),
-            out_x.data_ptr(), acc_y.data_ptr(), amt_y.data_ptr(),
-            dig_y.data_ptr(), n, bx, by, p.l, p.bgbit,
-            p.decomposition_offset, lo,
-            torch.cuda.current_stream().cuda_stream)
-    if rc:
-        raise RuntimeError(f"pipe step kernel launch failed: CUDA error {rc}")
-    launch_counts["pipe_step"] += 1
+    launch("pipe_step", "tfhe_pipe_step", dev, digits_x.data_ptr(),
+           band.data_ptr(), acc_x.data_ptr(), out_x.data_ptr(),
+           acc_y.data_ptr(), amt_y.data_ptr(), dig_y.data_ptr(), n, bx, by,
+           p.l, p.bgbit, p.decomposition_offset, lo)
     return out_x, dig_y
 
 

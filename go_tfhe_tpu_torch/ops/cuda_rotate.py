@@ -27,8 +27,7 @@ import torch
 
 from ..params import TFHEParams
 from ..utils.torus import TORUS
-from . import _build
-from .cuda_t import RowPlan, _check, launch_counts, row_plan
+from .cuda_t import RowPlan, _check, launch, row_plan
 from .decompose import gadget_decompose
 from .polymul import split_signed_limbs_i8
 from .rotate import monomial_mul
@@ -83,14 +82,7 @@ def rotate_decompose(p: TFHEParams, acc: torch.Tensor,
     plan = rotdec_plan(n, b, bs)
     out = torch.empty((b, nd * bs * 2 * p.l * n), dtype=torch.int8,
                       device=acc.device)
-    lib = _build.load_library()
-    with torch.cuda.device(acc.device):
-        rc = lib.tfhe_rotdec(
-            acc.data_ptr(), amounts.data_ptr(), out.data_ptr(), n, b, bs,
-            p.l, p.bgbit, p.decomposition_offset, nd, plan.rows,
-            plan.threads,
-            torch.cuda.current_stream().cuda_stream)
-    if rc:
-        raise RuntimeError(f"rotdec kernel launch failed: CUDA error {rc}")
-    launch_counts["rotate_decompose"] += 1
+    launch("rotate_decompose", "tfhe_rotdec", acc.device, acc.data_ptr(),
+           amounts.data_ptr(), out.data_ptr(), n, b, bs, p.l, p.bgbit,
+           p.decomposition_offset, nd, plan.rows, plan.threads)
     return out

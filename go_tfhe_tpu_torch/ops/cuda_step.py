@@ -25,10 +25,9 @@ import torch
 
 from ..params import TFHEParams
 from ..utils.torus import TORUS
-from . import _build
 from .cuda_extprod import extprod_ref
 from .cuda_rotate import rotate_decompose_ref
-from .cuda_t import _check, band_limb_drop, check_tile, launch_counts
+from .cuda_t import _check, band_limb_drop, check_tile, launch
 
 
 def _check_profile(p: TFHEParams) -> None:
@@ -70,13 +69,7 @@ def fused_rotate_step(p: TFHEParams, acc: torch.Tensor, amounts: torch.Tensor,
     if acc.data_ptr() % 16:
         raise ValueError("fused_rotate_step: acc must be 16-byte aligned")
     out = torch.empty_like(acc)
-    lib = _build.load_library()
-    with torch.cuda.device(acc.device):
-        rc = lib.tfhe_fused_step(
-            acc.data_ptr(), amounts.data_ptr(), band.data_ptr(),
-            out.data_ptr(), n, b, p.l, p.bgbit, p.decomposition_offset, lo,
-            torch.cuda.current_stream().cuda_stream)
-    if rc:
-        raise RuntimeError(f"fused step kernel launch failed: CUDA error {rc}")
-    launch_counts["fused_rotate_step"] += 1
+    launch("fused_rotate_step", "tfhe_fused_step", acc.device,
+           acc.data_ptr(), amounts.data_ptr(), band.data_ptr(),
+           out.data_ptr(), n, b, p.l, p.bgbit, p.decomposition_offset, lo)
     return out

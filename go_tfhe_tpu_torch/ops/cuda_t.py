@@ -18,8 +18,9 @@ library form, a yardstick of speed for the card); no path of the port calls
 it.
 
 A wrapper runs the plain version for CPU tensors and launches the CUDA
-kernel for CUDA tensors; it never falls back from one to the other.  Each
-launch adds one to ``launch_counts[<wrapper name>]``, which also counts the
+kernel for CUDA tensors, on their card (:func:`launch`); it never falls
+back from one to the other.  Each launch adds one to
+``launch_counts[<wrapper name>]``, which also counts the
 extended-LUT kernels K4/K5 (ops/cuda_ext_t.py), the row-major kernels
 K6 (ops/cuda_ext.py), K7 (ops/cuda_rotate.py) and K8 (ops/cuda_extprod.py),
 the fused step K3 (ops/cuda_step.py) and the pipelined step K9
@@ -32,7 +33,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..params import TFHEParams
+# band_limb_drop is the profile's rule; the wrappers' callers take it here.
+from ..params import TFHEParams, band_limb_drop  # noqa: F401
 from ..utils.torus import TORUS
 from . import _build
 from .decompose import gadget_decompose
@@ -63,11 +65,23 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
-def band_limb_drop(p: TFHEParams) -> int:
-    """The key limbs that the bands of a profile's keys are packed without
-    (:func:`pack_bsk_band_t`'s ``lo``) and that K2/K5/K9 skip: the TPU
-    kernel's ``kernel_limb_drop`` for single-limb digits, else 0."""
-    return p.kernel_limb_drop if p.digit_limbs == 1 else 0
+def launch(name: str, entry: str, device: torch.device, *args) -> None:
+    """Launch the library's entry point ``entry`` with ``args`` and the
+    stream on the card of the inputs, ``device``, and count it under
+    ``launch_counts[name]``; raises on a launch error.
+
+    Every wrapper launches through here.  The CUDA runtime launches on its
+    current device, and so do the entry points' cudaFuncSetAttribute
+    calls, so ``device`` is made current for the call and its own current
+    stream is passed: a tensor on ``cuda:1`` launches on card 1 whichever
+    card the caller has current."""
+    lib = _build.load_library()
+    with torch.cuda.device(device):
+        rc = getattr(lib, entry)(
+            *args, torch.cuda.current_stream(device).cuda_stream)
+    if rc:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    launch_counts[name] += 1
 
 
 def pack_bsk_band_t(bsk: torch.Tensor, lo: int = 0) -> torch.Tensor:
@@ -187,15 +201,9 @@ def rotate_decompose_t(p: TFHEParams, acc: torch.Tensor,
     nd = p.digit_limbs
     out = torch.empty((nd * 2 * p.l * n, b), dtype=torch.int8,
                       device=acc.device)
-    lib = _build.load_library()
-    with torch.cuda.device(acc.device):
-        rc = lib.tfhe_rotdec_t(
-            acc.data_ptr(), amounts.data_ptr(), out.data_ptr(), n, b, p.l,
-            p.bgbit, p.decomposition_offset, nd, plan.tb,
-            torch.cuda.current_stream().cuda_stream)
-    if rc:
-        raise RuntimeError(f"rotdec_t kernel launch failed: CUDA error {rc}")
-    launch_counts["rotate_decompose_t"] += 1
+    launch("rotate_decompose_t", "tfhe_rotdec_t", acc.device,
+           acc.data_ptr(), amounts.data_ptr(), out.data_ptr(), n, b, p.l,
+           p.bgbit, p.decomposition_offset, nd, plan.tb)
     return out
 
 
@@ -242,15 +250,8 @@ def extprod_t(digits: torch.Tensor, band: torch.Tensor, acc: torch.Tensor,
     _check("band", band, TORUS, (2, l2, 2 * n), acc.device)
     _check("digits", digits, torch.int8, (nd * l2 * n, b), acc.device)
     out = torch.empty_like(acc)
-    lib = _build.load_library()
-    with torch.cuda.device(acc.device):
-        rc = lib.tfhe_extprod_t(
-            digits.data_ptr(), band.data_ptr(), acc.data_ptr(),
-            out.data_ptr(), n, b, l2, nd, lo,
-            torch.cuda.current_stream().cuda_stream)
-    if rc:
-        raise RuntimeError(f"extprod_t kernel launch failed: CUDA error {rc}")
-    launch_counts["extprod_t"] += 1
+    launch("extprod_t", "tfhe_extprod_t", acc.device, digits.data_ptr(),
+           band.data_ptr(), acc.data_ptr(), out.data_ptr(), n, b, l2, nd, lo)
     return out
 
 

@@ -340,6 +340,14 @@ def get_params(name: str) -> TFHEParams:
             f"{sorted(set(p.name for p in PROFILES.values()))}") from None
 
 
+def band_limb_drop(p: TFHEParams) -> int:
+    """The key limbs that the bands of a profile's keys are packed without
+    (``ops.cuda_t.pack_bsk_band_t``'s ``lo``) and that the external
+    products skip: the TPU kernel's ``kernel_limb_drop`` for single-limb
+    digits, else 0."""
+    return p.kernel_limb_drop if p.digit_limbs == 1 else 0
+
+
 def security_info(p: TFHEParams) -> str:
     """Human-readable description (params/params.go:639-666); the JAX
     package's strings word for word (``go_tfhe_tpu/params.py:482-506``)."""

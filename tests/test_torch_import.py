@@ -37,6 +37,46 @@ def test_package_imports_without_jax():
     assert res.stdout.strip() == "ok"
 
 
+def test_mesh_utils_and_examples_import_without_jax():
+    """parallel/, every module of utils/ and the five examples/torch_*.py
+    programs import with JAX blocked, and load nothing of it or of the JAX
+    package."""
+    res = _run_without_jax("""
+        import glob, importlib.util
+        import go_tfhe_tpu_torch.parallel.mesh
+        from go_tfhe_tpu_torch.utils import metrics, profiling, rng, torus
+        paths = sorted(glob.glob("examples/torch_*.py"))
+        assert len(paths) == 5, paths
+        for path in paths:
+            spec = importlib.util.spec_from_file_location("ex", path)
+            spec.loader.exec_module(importlib.util.module_from_spec(spec))
+        assert not any(m == "jax" or m.startswith(("jax.", "go_tfhe_tpu."))
+                       for m in sys.modules if sys.modules[m] is not None)
+        print("ok")
+    """)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def _port_sources():
+    import glob
+    files = glob.glob(os.path.join(ROOT, "go_tfhe_tpu_torch", "**", "*.py"),
+                      recursive=True)
+    files += glob.glob(os.path.join(ROOT, "examples", "torch_*.py"))
+    return sorted(os.path.relpath(f, ROOT) for f in files) + ["chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _port_sources())
+def test_no_jax_import_in_source(path):
+    """No line of the port, its examples or chip_smoke.py imports JAX or
+    the JAX package (as opposed to go_tfhe_tpu_torch)."""
+    import re
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|go_tfhe_tpu)\b")
+    with open(os.path.join(ROOT, path)) as f:
+        bad = [line for line in f if pattern.match(line)]
+    assert not bad, bad
+
+
 def test_kernel_module_imports_without_nvcc():
     res = _run_without_jax("""
         from go_tfhe_tpu_torch.ops import (_build, cuda_ext, cuda_ext_t,
