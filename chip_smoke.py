@@ -54,7 +54,11 @@ entry points a user calls:
   K1 and K2;
 * the five example programs (``examples/torch_*.py``) through their
   ``main`` at full profiles (``128bit_fast``; ``uint5`` for the PBS and
-  the nibble adder), each right with its exact K1/K2 launches.
+  the nibble adder), each right with its exact K1/K2 launches;
+* ``128bit`` (``bench.py --exact``: bgbit 6, l 3, no key limb dropped):
+  keys made on the card, ``gates.NAND`` on the 4096 bit pairs through K1
+  + K2 (700 each) and route (c) (1 K1 + 1400 K9 at l 3), the two routes'
+  words equal.
 
 Before that it builds the nine Hopper kernels from
 ``go_tfhe_tpu_torch/csrc/`` and holds each against its plain PyTorch
@@ -62,9 +66,10 @@ version (tolerance 0) at the paths' shapes, wide-digit shapes, ragged
 batches, the edge rotation amounts and (K2, K5, K8, K3) extreme operands,
 and times each (CUDA events; K1, K4, K6 and K7, whose calls are about as
 short as their host launch cost, replayed from a CUDA graph, with their
-eager loop beside it; K9 also without its Y half), K2, K5 and K8 beside
-their library form (``torch._int_mm`` on int8 Toeplitz key limbs,
-``library_ms``).
+eager loop beside it; K9 also without its Y half, beside K1 alone on
+that half, and its blocks an SM at the tile's and the launch's shared
+memory), K2, K5 and K8 beside their library form (``torch._int_mm`` on
+int8 Toeplitz key limbs, ``library_ms``).
 Each path runs with the launch counters set to 0 just before it and read
 just after.
 
@@ -101,7 +106,7 @@ from go_tfhe_tpu_torch.ops import (_build, blindrotate, cuda_ext, cuda_ext_t,
                                    cuda_step, cuda_t)
 from go_tfhe_tpu_torch.ops.blindrotate import block_bands
 from go_tfhe_tpu_torch.utils import profiling
-from go_tfhe_tpu_torch.utils.torus import f64_to_torus
+from go_tfhe_tpu_torch.utils.torus import f64_to_torus, wrap_i32
 from rotdec_times import graph_ms
 
 BATCH = 4096
@@ -140,6 +145,8 @@ K4K5 = ("rotate_decompose_ext_t", "extprod_ext_t")
 K6K8 = ("rotate_decompose_ext", "extprod")
 K7K8 = ("rotate_decompose", "extprod")
 PIPE_HALF = BATCH // 2
+# The per-bit routes of phase 12 (per_bit_routes_phase).
+ROUTES = ("k1k2", "a_fused_k3", "b_k7k8", "c_pipe_k9")
 PROFILE = False           # set by --profile
 MESH_COPIES = 4
 # The five example programs (examples/torch_*.py) at the full profiles
@@ -757,29 +764,36 @@ def extreme_step(dev) -> int:
     return worst
 
 
-def step_pipe_kernels_against_plain(gen, dev, errs, times):
+def step_pipe_kernels_against_plain(gen, gen_k9, dev, errs, times):
     """K3 and K9 against their plain versions, exactly (tolerance 0): K3 at
     128bit_fast B 4096 and 4095 and 128bit B 4096, and on extreme operands
-    (:func:`extreme_step`); K9 at 128bit_fast with
-    halves of 2048, with an odd half of 2047 on either side, and 128bit
-    with halves of 2048; amounts 0, N, 2N - 1 and 2N among them.  Adds to
-    ``errs`` and ``times`` (K3 at 128bit_fast B 4096, K9 at halves of
-    2048)."""
+    (:func:`extreme_step`); K9 at 128bit_fast and 128bit (l 3) with halves
+    of 2048, an odd half of 2047 on either side, ragged and unequal halves
+    (17/33, 129/127), and acc_y in a misaligned view (its Y blocks stage
+    it in 4-byte copies); amounts 0, N, 2N - 1 and 2N among them.  Prints K9's blocks an SM at the X tile's
+    shared memory and at the launch's.  Adds to ``errs`` and ``times`` (K3
+    at 128bit_fast B 4096, K9 at halves of 2048); returns K9's graph times
+    with and without its Y half, at 128bit_fast and 128bit, and K1's at
+    half the batch.  The first four K9 shapes and the 128bit_fast graph
+    pair draw their inputs from ``gen`` in their original order, the
+    others from ``gen_k9``, so that adding a check here does not change
+    the later phases' keys and inputs (their figures compare from run to
+    run; PERF.md §7 on phase 14)."""
     fast, exact = params.P128_FAST, params.P128
 
-    def rand_words(shape):
+    def rand_words(shape, g=gen):
         return torch.randint(-2 ** 31, 2 ** 31, shape, dtype=torch.int32,
-                             device=dev, generator=gen)
+                             device=dev, generator=g)
 
-    def amounts(n, b):
+    def amounts(n, b, g=gen):
         t = torch.randint(0, 2 * n + 1, (b,), dtype=torch.int32, device=dev,
-                          generator=gen)
+                          generator=g)
         t[:4] = torch.tensor([0, n, 2 * n - 1, 2 * n], dtype=torch.int32,
                              device=dev)
         return t
 
-    def band(p):
-        bsk = rand_words((1, 2 * p.l, 2, p.n))
+    def band(p, g=gen):
+        bsk = rand_words((1, 2 * p.l, 2, p.n), g)
         if p.key_grid_bits:
             bsk &= ~((1 << p.key_grid_bits) - 1)
         return cuda_t.pack_bsk_band_t(bsk, cuda_t.band_limb_drop(p)
@@ -804,21 +818,41 @@ def step_pipe_kernels_against_plain(gen, dev, errs, times):
     errs["fused_rotate_step"] = max(errs["fused_rotate_step"],
                                     extreme_step(dev))
     h = PIPE_HALF
-    for p, bx, by in ((fast, h, h), (fast, h, h - 1), (fast, h - 1, h),
-                      (exact, h, h)):
-        acc_x, acc_y = rand_words((2, p.n, bx)), rand_words((2, p.n, by))
-        digits_x = cuda_t.rotate_decompose_t_ref(p, acc_x, amounts(p.n, bx))
-        args = (digits_x, band(p), acc_x, acc_y, amounts(p.n, by))
+    for p, lo in ((fast, 1), (exact, 0)):
+        plan = cuda_pipe.pipe_plan(p.n, h, h)
+        check(lo == cuda_t.band_limb_drop(p), "unexpected lo")
+        held = {smem: cuda_pipe.occupancy(lo, smem)
+                for smem in (cuda_pipe.TILE_SMEM, plan.smem)}
+        print(f"   pipe_kernel<lo {lo}> blocks an SM: "
+              + ", ".join(f"{k} at {smem} B" for smem, k in held.items())
+              + f"; plan at halves of {h}: {plan}", flush=True)
+    for p, bx, by, off, g in ((fast, h, h, False, gen),
+                              (fast, h, h - 1, False, gen),
+                              (fast, h - 1, h, False, gen),
+                              (exact, h, h, False, gen),
+                              (fast, 17, 33, False, gen_k9),
+                              (fast, h, h, True, gen_k9),
+                              (exact, h, h - 1, False, gen_k9),
+                              (exact, 129, 127, False, gen_k9),
+                              (exact, 64, 61, True, gen_k9)):
+        acc_x = rand_words((2, p.n, bx), g)
+        acc_y = rand_words((2, p.n, by), g)
+        if off:
+            acc_y = misaligned(acc_y)
+        digits_x = cuda_t.rotate_decompose_t_ref(p, acc_x,
+                                                 amounts(p.n, bx, g))
+        args = (digits_x, band(p, g), acc_x, acc_y, amounts(p.n, by, g))
         ox, dy = cuda_pipe.pipe_step(p, *args)
         px, py = cuda_pipe.pipe_step_ref(p, *args)
         torch.cuda.synchronize()
         e9 = max(max_abs_err(ox, px), max_abs_err(dy, py))
-        print(f"   {p.name:12s} halves {bx:4d}/{by:4d}  K9 max|err| {e9}",
-              flush=True)
+        what = (f"halves {bx:4d}/{by:4d}"
+                + (", acc_y misaligned" if off else ""))
+        print(f"   {p.name:12s} {what}  K9 max|err| {e9}", flush=True)
         check(e9 == 0, f"K9 disagrees with its plain version at {p.name} "
-              f"halves {bx}/{by}")
+              f"{what}")
         errs["pipe_step"] = max(errs["pipe_step"], e9)
-        if p is fast and bx == by == h:
+        if p is fast and bx == by == h and not off:
             times["pipe_step"] = (
                 cuda_ms(lambda: cuda_pipe.pipe_step(p, *args), 20),
                 cuda_ms(lambda: cuda_pipe.pipe_step_ref(p, *args), 3))
@@ -827,27 +861,39 @@ def step_pipe_kernels_against_plain(gen, dev, errs, times):
         ms, plain_ms = times[name]
         print(f"   {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per "
               f"call ({fast.name}, {where})", flush=True)
-    # K9's Y half (its per-element K1 gather): the same X half with and
-    # without a Y half, each replayed from a CUDA graph.
-    acc_x, acc_y = rand_words((2, fast.n, h)), rand_words((2, fast.n, h))
-    digits_x = cuda_t.rotate_decompose_t_ref(fast, acc_x, amounts(fast.n, h))
-    bd, am_y = band(fast), amounts(fast.n, h)
-    no_y = torch.empty((2, fast.n, 0), dtype=torch.int32, device=dev)
-    no_am = torch.empty((0,), dtype=torch.int32, device=dev)
-    both = lambda: cuda_pipe.pipe_step(fast, digits_x, bd, acc_x, acc_y, am_y)
-    x_only = lambda: cuda_pipe.pipe_step(fast, digits_x, bd, acc_x, no_y,
-                                         no_am)
-    check(torch.equal(both()[0], x_only()[0]),
-          "K9's X half depends on its Y half")
-    ms_both, ms_x = graph_ms(both, 20), graph_ms(x_only, 20)
-    print(f"   pipe_step halves {h}/{h}: {ms_both:.4f} ms, {h}/0: {ms_x:.4f} "
-          f"ms (graph): the Y half {ms_both - ms_x:.4f} ms, "
-          f"{(ms_both - ms_x) / ms_both:.1%} of the call", flush=True)
-    plain_ms = times["pipe_step"][1]
-    return {f"pipe_step halves {h}/{h}, graph": {
-                "ms": ms_both, "plain_ms": plain_ms, "library_ms": None},
-            f"pipe_step halves {h}/0, graph": {
-                "ms": ms_x, "plain_ms": None, "library_ms": None}}
+    # K9's Y half: the same X half with and without a Y half, each
+    # replayed from a CUDA graph, and K1 alone on the Y half.
+    out = {}
+    for p, g in ((fast, gen), (exact, gen_k9)):
+        acc_x, acc_y = rand_words((2, p.n, h), g), rand_words((2, p.n, h), g)
+        digits_x = cuda_t.rotate_decompose_t_ref(p, acc_x, amounts(p.n, h, g))
+        bd, am_y = band(p, g), amounts(p.n, h, g)
+        no_y = torch.empty((2, p.n, 0), dtype=torch.int32, device=dev)
+        no_am = torch.empty((0,), dtype=torch.int32, device=dev)
+        both = lambda: cuda_pipe.pipe_step(p, digits_x, bd, acc_x, acc_y,
+                                           am_y)
+        x_only = lambda: cuda_pipe.pipe_step(p, digits_x, bd, acc_x, no_y,
+                                             no_am)
+        k1 = lambda: cuda_t.rotate_decompose_t(p, acc_y, am_y)
+        check(torch.equal(both()[0], x_only()[0]),
+              "K9's X half depends on its Y half")
+        ms_both, ms_x, ms_k1 = (graph_ms(both, 20), graph_ms(x_only, 20),
+                                graph_ms(k1, 20))
+        print(f"   pipe_step {p.name} halves {h}/{h}: {ms_both:.4f} ms, "
+              f"{h}/0: {ms_x:.4f} ms (graph): the Y half "
+              f"{ms_both - ms_x:.4f} ms, {(ms_both - ms_x) / ms_both:.1%} "
+              f"of the call; K1 alone at B={h} {ms_k1:.4f} ms", flush=True)
+        name = "pipe_step" if p is fast else f"pipe_step {p.name}"
+        plain_ms = (times["pipe_step"][1] if p is fast else cuda_ms(
+            lambda: cuda_pipe.pipe_step_ref(p, digits_x, bd, acc_x, acc_y,
+                                            am_y), 3))
+        out[f"{name} halves {h}/{h}, graph"] = {
+            "ms": ms_both, "plain_ms": plain_ms, "library_ms": None}
+        out[f"{name} halves {h}/0, graph"] = {
+            "ms": ms_x, "plain_ms": None, "library_ms": None}
+        out[f"rotate_decompose_t {p.name} B={h}"] = {
+            "ms": ms_k1, "plain_ms": None, "library_ms": None}
+    return out
 
 
 def pbs_phase(gen, dev, p, batch: int, f, steady: bool,
@@ -999,17 +1045,17 @@ def block_nand_phase(gen, dev, p, bits_a, bits_b) -> dict:
 
 
 def per_bit_routes_phase(p, ck, sk, ct_a, ct_b, bits_a, bits_b,
-                         nand_out) -> dict:
-    """NAND on the bit pairs through each per-bit route on the same keys:
-    K1 + K2 (the default, timed again here so that the rates compare within
-    one phase), then (a) a key with ``transposed=False`` and
+                         nand_out, labels=ROUTES) -> dict:
+    """NAND on the bit pairs through each per-bit route of ``labels`` on
+    the same keys: K1 + K2 (the default, timed again here so that the rates
+    compare within one phase), then (a) a key with ``transposed=False`` and
     ``blindrotate.FUSED_STEP`` set (K3), (b) the same key with the flag
     unset (K7 at bs 1 + K8), (c) ``engine.PREFER_PIPE`` (one K1, then two
     K9 half-batch steps per LWE bit).  Each route: a first and a steady
     batch, exact launch counts, every output equal to ``nand_out`` (phase
-    5's batch: the routes compute the same words), truth table, margin,
-    and (a)-(c) PLAIN_CHECK gates against the route's plain path.  Returns
-    the figures by route."""
+    5's batch: the routes compute the same words; None: the first route's
+    batch), truth table, margin, and (a)-(c) PLAIN_CHECK gates against the
+    route's plain path.  Returns the figures by route."""
     batch, n = len(bits_a), p.lwe_n
     want = ~(bits_a & bits_b)
     row = dataclasses.replace(ck, transposed=False)
@@ -1022,6 +1068,8 @@ def per_bit_routes_phase(p, ck, sk, ct_a, ct_b, bits_a, bits_b,
                                         "pipe_step": 2 * n}))
     out = {}
     for label, key, fused, pipe, per_call in routes:
+        if label not in labels:
+            continue
         blindrotate.FUSED_STEP = fused
         engine.PREFER_PIPE = pipe
         route = engine._route(key)
@@ -1039,8 +1087,10 @@ def per_bit_routes_phase(p, ck, sk, ct_a, ct_b, bits_a, bits_b,
         print(f"   launches over 2 bootstrap calls: {launches}; peak memory "
               f"{peak} B", flush=True)
         check_counts(launches, per_call, 2)
+        if nand_out is None:
+            nand_out = res
         check(torch.equal(res, res2) and torch.equal(res, nand_out),
-              f"{label}: the batch differs from phase 5's NAND batch")
+              f"{label}: the batch differs from the first route's")
         check(res.shape == (batch, p.lwe_n + 1), "unexpected output shape")
         dec = cipher.lwe_decrypt_bool(res, sk.lv0).cpu().numpy()
         wrong = int((dec != want).sum())
@@ -1075,6 +1125,31 @@ def per_bit_routes_phase(p, ck, sk, ct_a, ct_b, bits_a, bits_b,
     blindrotate.FUSED_STEP = False
     engine.PREFER_PIPE = False
     return out
+
+def exact_phase(gen, dev, bits_a, bits_b) -> dict:
+    """Phase 19: NAND on the bit pairs at ``128bit`` (bench.py --exact: the
+    reference's gadget, bgbit 6, l 3, no key limb dropped), keys made on
+    the card, through K1 + K2 and route (c) (K1 + K9 at l 3: 6 digit rows,
+    4 key limbs) by :func:`per_bit_routes_phase`: exact launches, the two
+    routes' words equal, every output right at >= MIN_SIGMAS.  Returns the
+    keygen time and the figures by route."""
+    p = params.P128
+    t1 = time.perf_counter()
+    sk = keys.gen_secret_key(gen, p, dev)
+    ck = keys.gen_cloud_key(gen, sk, p)
+    keygen_s = done(t1, f"keygen at {p.name} ")
+    check(cuda_t.band_limb_drop(p) == 0 and p.l == 3, "unexpected profile")
+    ct_a = cipher.lwe_encrypt_bool(gen, torch.from_numpy(bits_a),
+                                   p.lwe_alpha, sk.lv0)
+    ct_b = cipher.lwe_encrypt_bool(gen, torch.from_numpy(bits_b),
+                                   p.lwe_alpha, sk.lv0)
+    routes = per_bit_routes_phase(p, ck, sk, ct_a, ct_b, bits_a, bits_b,
+                                  None, labels=("k1k2", "c_pipe_k9"))
+    for label, fig in routes.items():
+        print(f"   {p.name} {label:10s} {fig['gates_per_s']:9.1f} gates/s, "
+              f"margin {fig['margin_sigmas']:.1f} sigma", flush=True)
+    return {"keygen_s": keygen_s, **routes}
+
 
 def timed_run(label: str, fn) -> tuple:
     """fn() once with the launch counters set to 0 just before and read
@@ -1236,8 +1311,10 @@ def uint5_phase(gen, dev) -> dict:
     """Phase 14: uint5 (lwe_n 1071, N 2048, three digit limbs) on the
     card: keygen; ``add8_pbs`` on U5_BATCH random pairs of 8-bit numbers
     (3 bootstraps, K1 + K2), every sum against (a + b) mod 256, margin
-    against the 2^25 half-segment; PBS_PLAIN_CHECK pairs through the plain
-    versions, word for word; ``comparators.ge``, ``lt`` and ``eq`` (m 32)
+    against the 2^25 half-segment; PBS_PLAIN_CHECK pairs, and the first
+    PBS_PLAIN_CHECK wrong ones, through the plain versions, word for word,
+    and each wrong sum's PBS inputs against their half-segments, printed
+    before the guard fails; ``comparators.ge``, ``lt`` and ``eq`` (m 32)
     on every pair of [0, 16)^2, tiled to U5_BATCH."""
     p, m = U5, U5.message_modulus
     n = p.lwe_n
@@ -1263,32 +1340,69 @@ def uint5_phase(gen, dev) -> dict:
     check_counts(launches, dict.fromkeys(K1K2, n), 3)
     lo = (va & 0xF) + (vb & 0xF)
     want_lo, want_hi = lo % 16, ((va >> 4) + (vb >> 4) + (lo >= 16)) % 16
-    sig = min(message_margin(s_lo, sk.lv0, want_lo, m, "add8_pbs low nibble",
-                             U5_MIN_SIGMAS),
-              message_margin(s_hi, sk.lv0, want_hi, m, "add8_pbs high nibble",
-                             U5_MIN_SIGMAS))
     got = ((cipher.lwe_decrypt_message(s_hi, m, sk.lv0).cpu().numpy() << 4)
            | cipher.lwe_decrypt_message(s_lo, m, sk.lv0).cpu().numpy())
-    check(np.array_equal(got, (va + vb) % 256),
-          "an add8_pbs sum is not (a + b) mod 256")
-    print(f"   add8_pbs adds/s {U5_BATCH / secs:.1f}; peak memory {peak} B",
-          flush=True)
-    out["add8_pbs"] = {"batch_s": secs, "adds_per_s": U5_BATCH / secs,
-                       "margin_sigmas": sig, "peak_bytes": peak,
-                       "launches": launches}
+    wrong = np.flatnonzero(got != (va + vb) % 256)
 
+    # The plain path on the first PBS_PLAIN_CHECK pairs and on every wrong
+    # one (a second witness: the plain versions are held to the JAX
+    # package word for word by the CPU tests).
     t1 = time.perf_counter()
-    k = PBS_PLAIN_CHECK
+    idx = torch.from_numpy(np.union1d(np.arange(PBS_PLAIN_CHECK),
+                                      wrong[:PBS_PLAIN_CHECK])).to(dev)
     lut_sum, lut_carry = adders.make_adder_luts(ck)
-    a_lo, a_hi, b_lo, b_hi = (c[:k] for c in nib)
+    a_lo, a_hi, b_lo, b_hi = (c[idx] for c in nib)
     plain_lo = engine.bootstrap(ck, a_lo + b_lo, testvec=lut_sum, plain=True)
     carry = engine.bootstrap(ck, a_lo + b_lo, testvec=lut_carry, plain=True)
     plain_hi = engine.bootstrap(ck, a_hi + b_hi + carry, testvec=lut_sum,
                                 plain=True)
-    check(torch.equal(plain_lo, s_lo[:k]) and torch.equal(plain_hi, s_hi[:k]),
+    check(torch.equal(plain_lo, s_lo[idx]) and torch.equal(plain_hi,
+                                                           s_hi[idx]),
           "add8_pbs: the kernel path disagrees with the plain path")
     check(cuda_t.launch_counts == launches, "the plain path launched a kernel")
-    done(t1, f"{k} add8_pbs pairs bit-equal through the plain path; ")
+    done(t1, f"{len(idx)} add8_pbs pairs bit-equal through the plain path "
+         f"({min(len(wrong), PBS_PLAIN_CHECK)} of the batch's {len(wrong)} "
+         "wrong sums among them); ")
+    # The first PBS's input (a_lo + b_lo, which the carry's PBS shares) and
+    # the third's (a_hi + b_hi + the bootstrapped carry) after the mod
+    # switch to 2N, each pair's deviation from its ideal phase.  Beyond the
+    # 2^25 half-segment the exact blind rotation selects the neighbouring
+    # table entry, whatever computes it (PERF.md §7).
+    half = 2 ** 31 // m // 2
+    carry = lut.bootstrap_lut(ck, nib[0] + nib[2], lut_carry)
+    devs = []
+    for ct, ideal in ((nib[0] + nib[2], lo),
+                      (nib[1] + nib[3] + carry,
+                       (va >> 4) + (vb >> 4) + (lo >= 16))):
+        ms = blindrotate.mod_switch_2n(ct, p)
+        ms = wrap_i32(ms.to(torch.int64) << p.mod_switch_shift)
+        words = cipher.lwe_phase(ms, sk.lv0).cpu().numpy().astype(np.int64)
+        devs.append((words - cipher.encode_message(ideal, m).astype(np.int64)
+                     + 2 ** 31) % 2 ** 32 - 2 ** 31)
+    sig_in, std_in = half / float(devs[1].std()), float(devs[1].std())
+    print(f"   add8_pbs third PBS input after the mod switch: std "
+          f"2^{np.log2(std_in):.2f}, max |dev| "
+          f"2^{np.log2(np.abs(devs[1]).max() + 1):.2f}, margin "
+          f"{sig_in:.2f} sigma of the 2^25 half-segment", flush=True)
+    for i in wrong[:PBS_PLAIN_CHECK]:
+        print(f"   wrong sum {i}: {va[i]} + {vb[i]} -> {got[i]}; the plain "
+              f"path's words are the same; first PBS input |dev| "
+              f"{abs(devs[0][i]) / half:.4f}, third "
+              f"{abs(devs[1][i]) / half:.4f} half-segments", flush=True)
+        check(max(abs(devs[0][i]), abs(devs[1][i])) >= half,
+              f"add8_pbs sum {i} is wrong with both PBS inputs inside "
+              "their half-segments")
+    sig = min(message_margin(s_lo, sk.lv0, want_lo, m, "add8_pbs low nibble",
+                             U5_MIN_SIGMAS),
+              message_margin(s_hi, sk.lv0, want_hi, m, "add8_pbs high nibble",
+                             U5_MIN_SIGMAS))
+    check(len(wrong) == 0, "an add8_pbs sum is not (a + b) mod 256")
+    print(f"   add8_pbs adds/s {U5_BATCH / secs:.1f}; peak memory {peak} B",
+          flush=True)
+    out["add8_pbs"] = {"batch_s": secs, "adds_per_s": U5_BATCH / secs,
+                       "margin_sigmas": sig, "peak_bytes": peak,
+                       "launches": launches,
+                       "pbs3_input_margin_sigmas": sig_in}
     profile_batch("add8_pbs uint5", lambda: adders.add8_pbs(ck, *nib))
 
     pairs = np.asarray(list(np.ndindex(16, 16)))
@@ -1480,7 +1594,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="one more warm batch of each path of phases 5, "
-                    "7-12, the 8-bit ripple add and add8_pbs under "
+                    "7-12 and 19, the 8-bit ripple add and add8_pbs under "
                     "torch.profiler (kernel breakdown, idle)")
     args = ap.parse_args()
     global PROFILE
@@ -1521,8 +1635,9 @@ def main() -> int:
     ext_kernels_against_plain(gen, dev, errs, times, lib, shape_times)
     shape_times.update(rowmajor_kernels_against_plain(gen, dev, errs, times,
                                                       lib))
-    shape_times.update(step_pipe_kernels_against_plain(gen, dev, errs,
-                                                       times))
+    gen_k9 = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    shape_times.update(step_pipe_kernels_against_plain(gen, gen_k9, dev,
+                                                       errs, times))
     done(t0)
 
     p = params.P128_FAST
@@ -1714,6 +1829,12 @@ def main() -> int:
     ex = examples_phase()
     examples_s = done(t0)
 
+    t0 = phase(f"19. NAND batch of {BATCH} at {params.P128.name}: K1 + K2 "
+               "and (c) K1 + K9 at l 3")
+    torch.cuda.empty_cache()
+    exact = exact_phase(gen, dev, bits_a, bits_b)
+    exact_s = done(t0)
+
     runs = {"nand": launches, "and_or": and_or_launches,
             "uint6_centered": u6["launches"],
             "uint7_centered": u7["launches"],
@@ -1730,7 +1851,9 @@ def main() -> int:
             **{f"mesh_{label}": fig["launches"]
                for label, fig in mesh.items() if "launches" in fig},
             **{f"example_{name}": fig["launches"]
-               for name, fig in ex.items()}}
+               for name, fig in ex.items()},
+            **{f"exact_{label}": fig["launches"]
+               for label, fig in exact.items() if label in ROUTES}}
     u6p, u8p = params.UINT6_CENTERED, params.UINT8_CENTERED
     # name: (source, TPU kernel, the timed shape: profile, batch, rows)
     kernels = {
@@ -1794,6 +1917,15 @@ def main() -> int:
                     # no Y half: the X half is K2's work on one half
                     f"pipe_step halves {PIPE_HALF}/0, graph": (
                         "extprod_t", p, PIPE_HALF, 0),
+                    f"rotate_decompose_t {p.name} B={PIPE_HALF}": (
+                        "rotate_decompose_t", p, PIPE_HALF, 0),
+                    f"pipe_step {params.P128.name} halves {PIPE_HALF}/"
+                    f"{PIPE_HALF}, graph": ("pipe_step", params.P128,
+                                            PIPE_HALF, 0),
+                    f"pipe_step {params.P128.name} halves {PIPE_HALF}/0, "
+                    "graph": ("extprod_t", params.P128, PIPE_HALF, 0),
+                    f"rotate_decompose_t {params.P128.name} B={PIPE_HALF}": (
+                        "rotate_decompose_t", params.P128, PIPE_HALF, 0),
                     "extprod 4 rows B=4096": ("extprod", p, BATCH, 4),
                     "extprod uint8 B'=2304": ("extprod", u8p, UINT8_BATCH,
                                               0)}
@@ -1833,6 +1965,11 @@ def main() -> int:
         "examples": {"phase_s": examples_s, **{
             name: {k: v for k, v in fig.items() if k != "launches"}
             for name, fig in ex.items()}},
+        "exact_128bit": {"phase_s": exact_s, "keygen_s": exact["keygen_s"],
+                         **{label: {k: v for k, v in fig.items()
+                                    if k != "launches"}
+                            for label, fig in exact.items()
+                            if label in ROUTES}},
         "kernel_shape_times": shape_times,
         "path_launches": runs}))
     print(json.dumps({"ok": True, "device": {

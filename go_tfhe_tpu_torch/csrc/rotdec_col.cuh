@@ -1,5 +1,6 @@
 // The staged-column rotate + gadget-decompose kernel shared by K1
-// (rotdec_t.cu, k = 1) and K4 (rotdec_ext_t.cu, k = 2..4), transposed
+// (rotdec_t.cu, k = 1) and K4 (rotdec_ext_t.cu, k = 2..4), and its block
+// body rotdec_tile, which K9's Y blocks run too (pipe.cu, k = 1), transposed
 // layout (coefficient rows, ciphertext batch fastest), for Hopper (sm_90a).
 //
 // Every ciphertext has its own rotation, so a direct gather acc[c, (n -
@@ -178,22 +179,21 @@ __device__ void rotdec_block(const uint32_t* col, const uint32_t* x0,
                            bgbit, offset, nd);
 }
 
-// The kernel, for each tile of TB ciphertexts and channel (blockIdx.y):
-// one block stages the tile's k*N-row column (k = 1 for K1) and the
-// rotations of its k output blocks, then computes the output blocks in
-// turn.  Shared memory of a block: k*N rows of TB words and k*TB rotation
-// entries.  vec: 16-byte staging copies and 32-bit digit stores; tiled:
-// see rotdec_block.
+// One block's work, for tile `tile` of TB ciphertexts (of `tiles`) and
+// channel c: stage the tile's k*N-row column (k = 1 for K1 and K9) and the
+// rotations of its k output blocks in `smem`, then compute the output
+// blocks in turn.  Shared memory: col_smem_bytes(k, N, TB).  vec: 16-byte
+// staging copies and 32-bit digit stores; tiled: see rotdec_block.  The
+// staging and the gather stride by blockDim.x, a multiple of 32 (256 in
+// rotdec_kernel, 128 in K9's pipe_kernel).
 template <int TB>
-__global__ void __launch_bounds__(kThreads)
-rotdec_kernel(const uint32_t* __restrict__ acc,
-              const int32_t* __restrict__ amounts, int8_t* __restrict__ out,
-              int n, int k, int b, int l, int bgbit, uint32_t offset, int nd,
-              bool vec, bool tiled) {
-  extern __shared__ __align__(16) uint32_t smem[];
-  const int b0 = blockIdx.x * TB;
+__device__ __forceinline__ void rotdec_tile(
+    const uint32_t* __restrict__ acc, const int32_t* __restrict__ amounts,
+    int8_t* __restrict__ out, int n, int k, int b, int l, int bgbit,
+    uint32_t offset, int nd, bool vec, bool tiled, int tile, int c,
+    int tiles, uint32_t* smem) {
+  const int b0 = tile * TB;
   const int tb = min(TB, b - b0);
-  const int c = blockIdx.y;
   const int rows = k * n;
   uint32_t* col = smem;
   int* rot = reinterpret_cast<int*>(col + rows * TB);
@@ -221,13 +221,37 @@ rotdec_kernel(const uint32_t* __restrict__ acc,
   __syncthreads();
   for (int rp = 0; rp < k; ++rp)
     rotdec_block<TB>(col, col + rp * n * TB, rot + rp * TB, out, rp, c, b0,
-                     gridDim.x, n, b, tb, vec, tiled, l, bgbit, offset, nd);
+                     tiles, n, b, tb, vec, tiled, l, bgbit, offset, nd);
+}
+
+// The kernel: one block for each tile of TB ciphertexts (blockIdx.x) and
+// channel (blockIdx.y), each running rotdec_tile.
+template <int TB>
+__global__ void __launch_bounds__(kThreads)
+rotdec_kernel(const uint32_t* __restrict__ acc,
+              const int32_t* __restrict__ amounts, int8_t* __restrict__ out,
+              int n, int k, int b, int l, int bgbit, uint32_t offset, int nd,
+              bool vec, bool tiled) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  rotdec_tile<TB>(acc, amounts, out, n, k, b, l, bgbit, offset, nd, vec,
+                  tiled, blockIdx.x, blockIdx.y, gridDim.x, smem);
 }
 
 // What the kernel takes: TB in {4, 8, 16, 32} and N a multiple of the rows
 // of one bank cycle (32 / TB; the conflict-free read order needs it).
 inline bool plan_ok(int tb, int n) {
   return (tb == 4 || tb == 8 || tb == 16 || tb == 32) && n % (32 / tb) == 0;
+}
+
+// A block's shared memory: k*N rows of TB words and k*TB rotation entries.
+inline size_t col_smem_bytes(int k, int n, int tb) {
+  return ((size_t)k * n + k) * tb * 4;
+}
+
+// 16-byte staging copies and 32-bit digit stores: a batch of B columns
+// that is a multiple of 4, acc 16-byte and out 4-byte aligned.
+inline bool vec_ok(const void* acc, const void* out, int b) {
+  return b % 4 == 0 && (uintptr_t)acc % 16 == 0 && (uintptr_t)out % 4 == 0;
 }
 
 // Launches rotdec_kernel<tb>, ceil(B / tb) tiles for each of the 2
@@ -239,10 +263,9 @@ inline int launch(const void* acc, const void* amounts, void* out, int n,
                   int tb, bool tiled, void* stream) {
   if (!plan_ok(tb, n) || b < 1 || k < 1 || l < 1 || nd < 1)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = ((size_t)k * n + k) * tb * 4;
+  const size_t smem = col_smem_bytes(k, n, tb);
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  const bool vec = b % 4 == 0 && (uintptr_t)acc % 16 == 0 &&
-                   (uintptr_t)out % 4 == 0;
+  const bool vec = vec_ok(acc, out, b);
   auto go = [&](auto w) {
     constexpr int TB = decltype(w)::value;
     auto kernel = rotdec_kernel<TB>;

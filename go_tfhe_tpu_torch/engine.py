@@ -114,7 +114,9 @@ def _route(ck: CloudKey) -> str:
 
 
 def _bootstrap(ck: CloudKey, ct: torch.Tensor, testvec, key_switch: bool,
-               plain: bool) -> torch.Tensor:
+               plain: bool, route: str | None = None) -> torch.Tensor:
+    """The bootstrap through the blind rotation ``route`` (a name of
+    :data:`_ROTATIONS`; :func:`_route`'s by default)."""
     p = ck.params
     k = p.poly_extend_factor
     tv = ck.testvec if testvec is None else testvec
@@ -125,7 +127,8 @@ def _bootstrap(ck: CloudKey, ct: torch.Tensor, testvec, key_switch: bool,
     ct2 = ct.reshape(-1, ct.shape[-1])
     if tv.dim() > len(tv_shape):
         tv = tv.reshape((-1,) + tv_shape)
-    rotated = _ROTATIONS[_route(ck)](p, ck.bands, ct2, tv, plain=plain)
+    rotated = _ROTATIONS[route or _route(ck)](p, ck.bands, ct2, tv,
+                                              plain=plain)
     if k > 1:                               # big-poly coefficient 0
         rotated = rotated[:, 0]
     lv1 = sample_extract(rotated, 0)

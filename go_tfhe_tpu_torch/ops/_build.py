@@ -60,9 +60,11 @@ _SIGNATURES = {
     "tfhe_fused_step": (_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_uint32, _I,
                         _P),
     # digits_x, band, acc_x, out_x, acc_y, amt_y, dig_y, n, bx, by, l,
-    # bgbit, offset, lo, stream
+    # bgbit, offset, lo, nx, ny, smem, stream
     "tfhe_pipe_step": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                       ctypes.c_uint32, _I, _P),
+                       ctypes.c_uint32, _I, _I, _I, _I, _P),
+    # lo, smem, blocks (int*)
+    "tfhe_pipe_occupancy": (_I, _I, ctypes.POINTER(_I)),
 }
 
 _lib = None           # the loaded library: built and loaded once per process

@@ -12,22 +12,80 @@ decomposes half Y (K1's); the two halves share no data.  The TPU kernel's
 change no value; they are not ported.  Single-limb digits only
 (pallas_pipe.py:183).
 
-:func:`pipe_step` launches ``csrc/pipe.cu`` on CUDA tensors and runs
-:func:`pipe_step_ref` on CPU tensors; each launch adds one to
-``cuda_t.launch_counts["pipe_step"]``.
+:func:`pipe_step` launches ``csrc/pipe.cu`` on CUDA tensors with the plan
+of :func:`pipe_plan` and runs :func:`pipe_step_ref` on CPU tensors; each
+launch adds one to ``cuda_t.launch_counts["pipe_step"]``.
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
 
 import torch
 
 from ..params import TFHEParams
 from ..utils.torus import TORUS
+from . import _build
 from .blindrotate import mod_switch_2n
-from .cuda_t import (_check, band_limb_drop, check_tile, extprod_t_ref,
-                     launch, rotate_decompose_t,
+from .cuda_t import (SMEM_LIMIT, _check, band_limb_drop, check_tile,
+                     extprod_t_ref, launch, rotate_decompose_t,
                      rotate_decompose_t_ref)
 from .rotate import monomial_mul
+
+# extprod_tile.cuh's output tile (TN coefficients x TB ciphertexts) and its
+# dynamic shared memory at one digit limb (extprod_smem_bytes<1>(); pipe.cu
+# refuses a plan below its own count).
+_TILE_N = 64
+_TILE_B = 64
+TILE_SMEM = 27184
+# Ciphertexts a Y tile: pipe.cu's kYTile (K1's width, rotdec_t_plan).
+Y_TILE = 16
+
+
+class PipePlan(NamedTuple):
+    """K9's launch (csrc/pipe.cu): ``tb`` ciphertexts a Y tile (a Y block
+    stages one channel's N rows of them, K1's staged column);
+    ``x_blocks`` 64 x 64 output tiles of X's product (both channels), then
+    ``y_blocks`` (Y tile, channel) blocks, in one grid; ``smem`` dynamic
+    shared-memory bytes a block (the larger of the two kinds' needs)."""
+    tb: int
+    x_blocks: int
+    y_blocks: int
+    smem: int
+
+
+def pipe_plan(n: int, bx: int, by: int) -> PipePlan:
+    """K9's launch at N and halves of bx (X) and by (Y) ciphertexts, every
+    Y block after the X tiles (the short Y blocks fill the X tiles' last
+    wave; interleaving and Y tiles of 8 measured slower, PERF.md §6).  The
+    wrapper passes the block counts and the shared memory to pipe.cu,
+    which refuses a plan that is not its own.  Raises ValueError for what
+    the kernel does not take: N not a multiple of the tile's 64, a
+    negative half, or more shared memory than the card allows a block."""
+    if n % _TILE_N:
+        raise ValueError(f"pipe_step: N={n} is not a multiple of {_TILE_N}")
+    if bx < 0 or by < 0:
+        raise ValueError(f"pipe_step: halves of {bx} and {by} ciphertexts")
+    smem = max(TILE_SMEM, 4 * (n + 1) * Y_TILE)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"pipe_step: {smem} bytes of shared memory a block "
+                         f"at N={n}; the card allows {SMEM_LIMIT}")
+    return PipePlan(Y_TILE, -(-bx // _TILE_B) * (n // _TILE_N) * 2,
+                    -(-by // Y_TILE) * 2, smem)
+
+
+def occupancy(lo: int, smem: int) -> int:
+    """The blocks of K9's kernel (``lo``) that one SM of the current card
+    holds at ``smem`` bytes of dynamic shared memory a block
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor; no launch)."""
+    blocks = ctypes.c_int(0)
+    rc = _build.load_library().tfhe_pipe_occupancy(lo, smem,
+                                                   ctypes.byref(blocks))
+    if rc:
+        raise RuntimeError(f"pipe_step occupancy query failed: CUDA error "
+                           f"{rc}")
+    return blocks.value
 
 
 def _check_profile(p: TFHEParams) -> None:
@@ -57,7 +115,7 @@ def pipe_step(p: TFHEParams, digits_x: torch.Tensor, band: torch.Tensor,
     """K9 (replaces pallas_pipe.pipe_step): see the ref's contract.  Both
     results are new tensors (the TPU kernel aliases ``acc_x``:
     pallas_pipe.py:229).  The halves may differ in size by one (an odd
-    batch)."""
+    batch); the launch is :func:`pipe_plan`'s at these halves."""
     if acc_x.device.type == "cpu":
         return pipe_step_ref(p, digits_x, band, acc_x, acc_y, amt_y)
     _check_profile(p)
@@ -67,6 +125,7 @@ def pipe_step(p: TFHEParams, digits_x: torch.Tensor, band: torch.Tensor,
     lo = band_limb_drop(p)
     dev = acc_x.device
     check_tile("pipe_step", n, l2, lo)
+    plan = pipe_plan(n, bx, by)
     _check("digits_x", digits_x, torch.int8, (l2 * n, bx), dev)
     _check("band", band, TORUS, (2, l2, 2 * n), dev)
     _check("acc_x", acc_x, TORUS, (2, n, bx), dev)
@@ -77,7 +136,8 @@ def pipe_step(p: TFHEParams, digits_x: torch.Tensor, band: torch.Tensor,
     launch("pipe_step", "tfhe_pipe_step", dev, digits_x.data_ptr(),
            band.data_ptr(), acc_x.data_ptr(), out_x.data_ptr(),
            acc_y.data_ptr(), amt_y.data_ptr(), dig_y.data_ptr(), n, bx, by,
-           p.l, p.bgbit, p.decomposition_offset, lo)
+           p.l, p.bgbit, p.decomposition_offset, lo, plan.x_blocks,
+           plan.y_blocks, plan.smem)
     return out_x, dig_y
 
 

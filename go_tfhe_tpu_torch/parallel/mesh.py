@@ -21,15 +21,11 @@ How the port differs from the JAX module:
   result is read, so the cards overlap; the outputs are concatenated in
   batch order on the input's device.
 * :func:`sharded_bootstrap_cuda`, the counterpart of
-  ``sharded_bootstrap_pallas``, runs the blind rotation that
-  ``engine._route`` gives the key: K1/K2 by default, K1/K9 with
-  ``engine.PREFER_PIPE``, K7/K8 or K3 on ``transposed=False`` keys, the
-  cores that the JAX function picks.  Two keys differ: the JAX function
-  runs its per-bit core on a block-binary key where ``_route`` gives the
-  block rotation (``PREFER_BLOCK_ROTATION``, or a key whose N the TPU
-  kernels do not tile), and it refuses a key without a Pallas band (N %
-  256 != 0), which the port serves with the portable core's route.  Both
-  refuse extended profiles (poly_extend_factor > 1).
+  ``sharded_bootstrap_pallas``, runs the per-bit core that the JAX
+  function picks (:func:`_pallas_rotation`), never the block rotation:
+  K1/K2 on a transposed key, K1/K9 with ``engine.PREFER_PIPE``, K7/K8 or
+  K3 on a ``transposed=False`` key.  Both refuse a key without a Pallas
+  band (N % 256 != 0) and extended profiles (poly_extend_factor > 1).
 * Multi-process: :func:`multihost_initialize` starts a
   ``torch.distributed`` process group where JAX starts
   ``jax.distributed``.  With a group of W > 1 processes up, every rank
@@ -153,26 +149,47 @@ def sharded_bootstrap(mesh: Mesh, ck: CloudKey, ct: torch.Tensor,
                         lambda key, x, tv: engine.bootstrap(key, x, tv))
 
 
+def _pallas_rotation(ck: CloudKey) -> str:
+    """The blind rotation of ``sharded_bootstrap_pallas``'s core
+    (go_tfhe_tpu/parallel/mesh.py:100-106): on a transposed key
+    ``blind_rotate_pipe`` with ``engine.PREFER_PIPE`` and single-limb
+    digits, else ``blind_rotate_t``; on a ``transposed=False`` key
+    ``blind_rotate_tpu``.  Never the block rotation, whatever the key and
+    ``engine.PREFER_BLOCK_ROTATION``.  Raises ValueError where the JAX
+    function asserts: an extended profile, or an N the Pallas kernels do
+    not tile (no band, N % 256 != 0)."""
+    p = ck.params
+    if p.poly_extend_factor != 1:
+        raise ValueError(
+            "sharded_bootstrap_cuda: extended profiles are not supported "
+            f"({p.name!r}, poly_extend_factor {p.poly_extend_factor}); use "
+            "sharded_bootstrap, which routes through engine.bootstrap")
+    if p.n % 256:
+        raise ValueError(
+            f"sharded_bootstrap_cuda: profile {p.name!r} is not "
+            f"Pallas-eligible (N {p.n} is not a multiple of 256); use "
+            "sharded_bootstrap, which routes through engine.bootstrap")
+    if not ck.transposed:
+        return "blind_rotate_tpu"
+    if engine.PREFER_PIPE and p.digit_limbs == 1:
+        return "blind_rotate_pipe"
+    return "blind_rotate_t"
+
+
 def sharded_bootstrap_cuda(mesh: Mesh, ck: CloudKey, ct: torch.Tensor,
                            testvec: torch.Tensor | None = None,
                            key_switch: bool = True) -> torch.Tensor:
     """The counterpart of the JAX ``sharded_bootstrap_pallas``: each shard
-    runs the per-bit blind rotation that ``engine._route`` gives the key
-    (see the module docstring), then sample extraction and, with
-    ``key_switch``, the identity key switch (without it the result is
-    under the level-1 key, as ``engine.bootstrap_without_key_switch``'s).
-    Raises ValueError on an extended profile, as the JAX function refuses
-    it (its (k, 2, N) accumulator would be split on the k axis)."""
-    if ck.params.poly_extend_factor != 1:
-        raise ValueError(
-            "sharded_bootstrap_cuda: extended profiles are not supported "
-            f"({ck.params.name!r}, poly_extend_factor "
-            f"{ck.params.poly_extend_factor}); use sharded_bootstrap, which "
-            "routes through engine.bootstrap")
+    runs the blind rotation of :func:`_pallas_rotation` (which raises
+    ValueError where the JAX function asserts), then sample extraction
+    and, with ``key_switch``, the identity key switch (without it the
+    result is under the level-1 key, as
+    ``engine.bootstrap_without_key_switch``'s)."""
+    route = _pallas_rotation(ck)
     return _run_sharded(
         mesh, ck, ct, testvec,
         lambda key, x, tv: engine._bootstrap(key, x, tv, key_switch,
-                                             plain=False))
+                                             plain=False, route=route))
 
 
 def multihost_initialize(**kwargs) -> None:

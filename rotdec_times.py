@@ -1,7 +1,8 @@
 """Times the rotate + decompose kernels of go_tfhe_tpu_torch (K1, K4, K6,
-K7) on one CUDA card, two ways: an eager loop of calls between CUDA events
-(the way ``chip_smoke.py`` times the other kernels), and the same calls
-replayed from a CUDA graph (device time without the host's launch cost).
+K7) and the pipelined step K9 on one CUDA card, two ways: an eager loop of
+calls between CUDA events (the way ``chip_smoke.py`` times the other
+kernels), and the same calls replayed from a CUDA graph (device time
+without the host's launch cost).
 
     python3 rotdec_times.py [ROOT] [--seed S]
 
@@ -9,9 +10,10 @@ ROOT is the checkout whose package is timed (default: this script's), so
 two trees can be compared on one card by running it on each in turns.
 Shapes, the main paths': K1 at 128bit_fast B 4096, K4 at uint6_centered B
 2048 and uint7_centered B 256, K7 at 128bit_fast B 4096 with bs 3 (the
-block rotation) and bs 1 (route (b)), K6 at uint8_centered B 256; each
-result is first held against the plain version (max |err| 0).  Prints one
-JSON object.
+block rotation) and bs 1 (route (b)), K6 at uint8_centered B 256; K9 at
+128bit_fast and 128bit with halves of 2048 and 128bit_fast with halves
+of 1024, 3000 and 128, with and without its Y half.  Each result is first
+held against the plain version (max |err| 0).  Prints one JSON object.
 """
 
 from __future__ import annotations
@@ -62,6 +64,41 @@ def graph_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def pipe_times(p, gen, cuda_pipe, cuda_t, h: int = 2048) -> dict:
+    """K9 at profile p, halves of h: both halves and the X half alone
+    (eager and graph); None where the result disagrees with the plain
+    version."""
+    def words(shape):
+        return torch.randint(-2 ** 31, 2 ** 31, shape, dtype=torch.int32,
+                             device="cuda", generator=gen)
+
+    def amounts(b):
+        return torch.randint(0, 2 * p.n + 1, (b,), dtype=torch.int32,
+                             device="cuda", generator=gen)
+
+    acc_x, acc_y = words((2, p.n, h)), words((2, p.n, h))
+    bsk = words((1, 2 * p.l, 2, p.n))
+    if p.key_grid_bits:
+        bsk &= ~((1 << p.key_grid_bits) - 1)
+    band = cuda_t.pack_bsk_band_t(bsk, cuda_t.band_limb_drop(p))[0]
+    args = (cuda_t.rotate_decompose_t_ref(p, acc_x, amounts(h)),
+            band.contiguous(), acc_x, acc_y, amounts(h))
+    no_y = (torch.empty((2, p.n, 0), dtype=torch.int32, device="cuda"),
+            torch.empty((0,), dtype=torch.int32, device="cuda"))
+    fn = lambda: cuda_pipe.pipe_step(p, *args)
+    got, want = fn(), cuda_pipe.pipe_step_ref(p, *args)
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        print(f"rotdec_times: pipe_step disagrees with its plain version at "
+              f"{p.name}", file=sys.stderr)
+        return None
+    x_only = lambda: cuda_pipe.pipe_step(p, *args[:3], *no_y)
+    return {f"pipe_step {p.name} halves {h}/{h}": {
+                "eager_ms": eager_ms(fn, REPS), "graph_ms": graph_ms(fn, REPS)},
+            f"pipe_step {p.name} halves {h}/0": {
+                "eager_ms": eager_ms(x_only, REPS),
+                "graph_ms": graph_ms(x_only, REPS)}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("root", nargs="?",
@@ -73,7 +110,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.abspath(args.root))
     from go_tfhe_tpu_torch import params
-    from go_tfhe_tpu_torch.ops import cuda_ext, cuda_ext_t, cuda_rotate, cuda_t
+    from go_tfhe_tpu_torch.ops import (cuda_ext, cuda_ext_t, cuda_pipe,
+                                       cuda_rotate, cuda_t)
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     fast, u8 = params.P128_FAST, params.UINT8_CENTERED
@@ -112,6 +150,12 @@ def main() -> int:
             return 1
         out[f"{name} {p.name} B={b}"] = {
             "eager_ms": eager_ms(fn, REPS), "graph_ms": graph_ms(fn, REPS)}
+    for p, h in ((fast, 2048), (params.P128, 2048), (fast, 1024),
+                 (fast, 3000), (fast, 128)):
+        times = pipe_times(p, gen, cuda_pipe, cuda_t, h)
+        if times is None:
+            return 1
+        out.update(times)
     print(json.dumps({"root": os.path.abspath(args.root),
                       "device": torch.cuda.get_device_name(0),
                       "times": out}))

@@ -6,6 +6,7 @@ None``, so any import of JAX, direct or indirect, raises.
 """
 
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -97,6 +98,37 @@ def test_kernel_module_imports_without_nvcc():
         print("ok")
     """, CUDA_HOME="/nonexistent")
     assert res.returncode == 0, res.stderr
+
+
+def _c_entry_points():
+    """{name: [C parameter declarations]} of every extern "C" function in
+    the kernel sources."""
+    from go_tfhe_tpu_torch.ops import _build
+    found = {}
+    for name in _build.SOURCES:
+        with open(os.path.join(_build.CSRC_DIR, name)) as f:
+            text = f.read()
+        for fn, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
+                                     text):
+            found[fn] = [" ".join(p.split()) for p in params.split(",")]
+    return found
+
+
+def test_ctypes_signatures_match_the_sources():
+    """Each extern "C" entry point of csrc/*.cu has a ctypes signature in
+    _build._SIGNATURES with as many arguments, each of the C type's kind
+    (a pointer, int, or unsigned int): a missing argument would shift the
+    stream pointer into the wrong slot."""
+    import ctypes
+    from go_tfhe_tpu_torch.ops import _build
+    entries = _c_entry_points()
+    assert entries.keys() == _build._SIGNATURES.keys()
+    for fn, params in entries.items():
+        want = [ctypes.POINTER(ctypes.c_int) if p.startswith("int*")
+                else ctypes.c_void_p if "*" in p
+                else ctypes.c_uint32 if p.startswith("unsigned int")
+                else ctypes.c_int for p in params]
+        assert list(_build._SIGNATURES[fn]) == want, (fn, params)
 
 
 def test_loader_raises_without_cuda():

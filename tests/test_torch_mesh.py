@@ -156,12 +156,71 @@ def test_sharded_bootstrap_cuda_matches_pallas(jx, pallas, key_switch):
         cipher.lwe_decrypt_bool(got, _t(key)).numpy(), ~(A & B))
 
 
+@pytest.fixture(scope="module")
+def block_pallas(jx):
+    """A block-binary key at P_PALLAS with block_size 2 (N 256, lwe_n 8),
+    with the bands JAX's keygen builds for it (row-major and reversed),
+    and a NAND batch."""
+    jax = jx.jax
+    p = _jparams(jx, dataclasses.replace(P_PALLAS, name="test_shard_block",
+                                         block_size=2))
+    k1, k2, ka, kb = jax.random.split(jax.random.PRNGKey(23), 4)
+    sk = jx.tfhe.gen_secret_key(k1, p, block_binary=True)
+    ck = jx.tfhe.gen_cloud_key(k2, sk, p)
+    assert ck.bsk_band is not None and ck.bsk_band_rev is not None
+    ca = jx.cipher.lwe_encrypt_bool(ka, A, p.lwe_alpha, sk.lv0)
+    cb = jx.cipher.lwe_encrypt_bool(kb, B, p.lwe_alpha, sk.lv0)
+    return sk, ck, jx.engine.prepare_nand(ca, cb)
+
+
+@pytest.mark.parametrize("key_switch", [True, False])
+def test_sharded_bootstrap_cuda_never_takes_the_block_core(
+        jx, block_pallas, monkeypatch, key_switch):
+    """With PREFER_BLOCK_ROTATION set in both packages, a block-binary key
+    at N 256 takes the block rotation through engine.bootstrap, but
+    sharded_bootstrap_cuda runs the per-bit core that JAX's
+    sharded_bootstrap_pallas runs (``_bootstrap_core_t``; it never takes
+    the block core) and equals it word for word, with and without the key
+    switch."""
+    monkeypatch.setattr(jx.engine, "PREFER_BLOCK_ROTATION", True)
+    monkeypatch.setattr(engine, "PREFER_BLOCK_ROTATION", True)
+    sk, ck, prepared = block_pallas
+    want = np.asarray(jx.mesh.sharded_bootstrap_pallas(
+        jx.mesh8, ck, prepared, key_switch=key_switch))
+    tck = _port_ck(ck)
+    assert engine._route(tck) == "blind_rotate_block"
+    got = meshlib.sharded_bootstrap_cuda(_cpu_mesh(4), tck, _t(prepared),
+                                         key_switch=key_switch)
+    np.testing.assert_array_equal(to_numpy_u32(got), want)
+    key = sk.lv0 if key_switch else sk.lv1
+    np.testing.assert_array_equal(
+        cipher.lwe_decrypt_bool(got, _t(key)).numpy(), ~(A & B))
+
+
+def test_sharded_bootstrap_cuda_row_major_block_key(jx, block_pallas):
+    """The same key with ``transposed=False`` (a JAX key with only the
+    row-major band): sharded_bootstrap_cuda runs ``blind_rotate_tpu``, the
+    counterpart of JAX's row-band core ``_bootstrap_core_tpu``, and equals
+    sharded_bootstrap_pallas word for word."""
+    sk, ck, prepared = block_pallas
+    jck = dataclasses.replace(ck, bsk_band_rev=None)
+    want = np.asarray(jx.mesh.sharded_bootstrap_pallas(jx.mesh8, jck,
+                                                       prepared))
+    tck = dataclasses.replace(_port_ck(ck), transposed=False)
+    assert engine._route(tck) == "blind_rotate_block"
+    got = meshlib.sharded_bootstrap_cuda(_cpu_mesh(2), tck, _t(prepared))
+    np.testing.assert_array_equal(to_numpy_u32(got), want)
+    np.testing.assert_array_equal(
+        cipher.lwe_decrypt_bool(got, _t(sk.lv0)).numpy(), ~(A & B))
+
+
 def test_sharded_bootstrap_cuda_block_key(jx):
     """A block-binary TEST_BLOCK key (N 128): JAX's
-    sharded_bootstrap_pallas refuses it (no Pallas band at N % 256 != 0);
-    the port's sharded_bootstrap_cuda runs the route engine._route gives
-    it, the block rotation, and equals JAX's sharded_bootstrap (its
-    portable block core) word for word."""
+    sharded_bootstrap_pallas refuses it (no Pallas band at N % 256 != 0)
+    and so does the port's sharded_bootstrap_cuda; the port's
+    sharded_bootstrap runs the route engine._route gives it, the block
+    rotation, and equals JAX's sharded_bootstrap (its portable block core)
+    word for word."""
     jax = jx.jax
     p = jx.tfhe.TEST_BLOCK
     k1, k2, ka, kb = jax.random.split(jax.random.PRNGKey(29), 4)
@@ -172,20 +231,25 @@ def test_sharded_bootstrap_cuda_block_key(jx):
     prepared = jx.engine.prepare_nand(ca, cb)
     with pytest.raises(AssertionError, match="not Pallas-eligible"):
         jx.mesh.sharded_bootstrap_pallas(jx.mesh8, ck, prepared)
-    want = np.asarray(jx.mesh.sharded_bootstrap(jx.mesh8, ck, prepared))
     tck = _port_ck(ck)
+    with pytest.raises(ValueError, match="not Pallas-eligible"):
+        meshlib.sharded_bootstrap_cuda(_cpu_mesh(2), tck, _t(prepared))
+    want = np.asarray(jx.mesh.sharded_bootstrap(jx.mesh8, ck, prepared))
     assert engine._route(tck) == "blind_rotate_block"
-    got = meshlib.sharded_bootstrap_cuda(_cpu_mesh(2), tck, _t(prepared))
+    got = meshlib.sharded_bootstrap(_cpu_mesh(2), tck, _t(prepared))
     np.testing.assert_array_equal(to_numpy_u32(got), want)
 
 
-def test_refusals(jx, fast):
-    """A batch the shards do not divide, and an extended profile in
-    sharded_bootstrap_cuda (the JAX function asserts on it), raise."""
+def test_refusals(jx, fast, pallas):
+    """A batch the shards do not divide (sharded_bootstrap_cuda on an N 256
+    key: it refuses TEST_FAST's N 128 first, as the JAX function asserts
+    on it), and an extended profile in sharded_bootstrap_cuda (the JAX
+    function asserts on it), raise."""
     ct, _ = fast.inputs["nand"]
-    for fn in (meshlib.sharded_bootstrap, meshlib.sharded_bootstrap_cuda):
+    for fn, tck in ((meshlib.sharded_bootstrap, fast.tck),
+                    (meshlib.sharded_bootstrap_cuda, _port_ck(pallas[1]))):
         with pytest.raises(ValueError, match="not divisible"):
-            fn(_cpu_mesh(4), fast.tck, ct[:6])
+            fn(_cpu_mesh(4), tck, ct[:6])
     p = _jparams(jx, params.TEST_EXT2)
     jck = jx.tfhe.gen_cloud_key_no_ksk(p)
     jct = jx.jax.numpy.zeros((4, p.lwe_n + 1), jx.jax.numpy.uint32)
@@ -252,8 +316,9 @@ def cuda_device():
 def test_mesh_on_gpu_matches_unsharded(cuda_device):
     """A mesh naming the card twice, and a mesh of every card, equal the
     unsharded bootstrap on the card, with 2 x lwe_n K1/K2 launches on the
-    first; sharded_bootstrap_cuda without the key switch equals
-    bootstrap_without_key_switch."""
+    first; sharded_bootstrap_cuda refuses that TEST_FAST key (N 128, as
+    the JAX function does), and on a P_PALLAS key (N 256) without the key
+    switch equals bootstrap_without_key_switch."""
     p = params.TEST_FAST
     gen = torch.Generator(device=cuda_device).manual_seed(4)
     sk = keys.gen_secret_key(gen, p, cuda_device)
@@ -271,9 +336,16 @@ def test_mesh_on_gpu_matches_unsharded(cuda_device):
     assert torch.equal(got, want)
     assert torch.equal(meshlib.sharded_bootstrap(meshlib.make_mesh(), ck,
                                                  prepared), want)
+    mesh4 = meshlib.make_mesh([cuda_device] * 4)
+    with pytest.raises(ValueError, match="not Pallas-eligible"):
+        meshlib.sharded_bootstrap_cuda(mesh4, ck, prepared)
+    sk = keys.gen_secret_key(gen, P_PALLAS, cuda_device)
+    ck = keys.gen_cloud_key(gen, sk, P_PALLAS)
+    prepared = engine.prepare_nand(
+        cipher.lwe_encrypt_bool(gen, A, P_PALLAS.lwe_alpha, sk.lv0),
+        cipher.lwe_encrypt_bool(gen, B, P_PALLAS.lwe_alpha, sk.lv0))
     assert torch.equal(
-        meshlib.sharded_bootstrap_cuda(meshlib.make_mesh([cuda_device] * 4),
-                                       ck, prepared, key_switch=False),
+        meshlib.sharded_bootstrap_cuda(mesh4, ck, prepared, key_switch=False),
         engine.bootstrap_without_key_switch(ck, prepared))
 
 

@@ -236,16 +236,34 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _misaligned(x):
+    """x's values in a contiguous view 4 bytes past a 16-byte boundary."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = flat[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("name,bx,by", [
-    ("128bit_fast", 256, 256), ("128bit_fast", 255, 256),
-    ("128bit_fast", 256, 255), ("128bit_fast", 1, 0), ("128bit_fast", 0, 3),
-    ("128bit", 200, 199)])
-def test_k9_matches_plain_on_gpu(cuda_device, name, bx, by):
-    """Full width (N 1024; 128bit_fast's dropped limb, 128bit's l 3),
-    ragged and unequal halves, an empty half."""
+@pytest.mark.parametrize("name,bx,by,misaligned", [
+    ("128bit_fast", 256, 256, False), ("128bit_fast", 255, 256, False),
+    ("128bit_fast", 256, 255, False), ("128bit_fast", 1, 0, False),
+    ("128bit_fast", 0, 3, False), ("128bit", 200, 199, False),
+    ("128bit_fast", 2048, 2047, False), ("128bit_fast", 2047, 2048, False),
+    ("128bit_fast", 17, 33, False), ("128bit", 2048, 2048, False),
+    ("128bit", 129, 127, False), ("128bit_fast", 256, 256, True),
+    ("128bit", 64, 61, True), ("test_pbs", 100, 99, False),
+    ("128bit", 200, 199, True), ("test_fast", 9, 7, False)])
+def test_k9_matches_plain_on_gpu(cuda_device, name, bx, by, misaligned):
+    """Full width (N 1024; 128bit_fast's dropped limb, 128bit's l 3), N
+    512 and N 128, ragged and unequal halves, an empty half, and acc_y in
+    a view 4 bytes off a 16-byte boundary (the Y blocks stage it in 4-byte
+    copies)."""
     p = params.get_params(name)
     args, _ = _pipe_inputs(p, bx, by, 7, cuda_device)
+    if misaligned:
+        args = args[:3] + (_misaligned(args[3]),) + args[4:]
+        assert args[3].data_ptr() % 16
     before = cuda_t.launch_counts["pipe_step"]
     out_x, dig_y = cuda_pipe.pipe_step(p, *args)
     torch.cuda.synchronize()

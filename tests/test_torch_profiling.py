@@ -127,6 +127,8 @@ BOUND_ROWS = [
     ("extprod", "128bit_fast", 4096, 4, 0.1042, "operations"),
     ("extprod", "uint8_centered", 256, 0, 0.3516, "operations"),
     ("pipe_step", "128bit_fast", 2048, 0, 0.0521, "operations"),
+    ("pipe_step", "128bit", 2048, 0, 0.1042, "operations"),
+    ("rotate_decompose_t", "128bit_fast", 2048, 0, 0.0075, "bytes"),
 ]
 
 
