@@ -58,7 +58,17 @@ entry points a user calls:
 * ``128bit`` (``bench.py --exact``: bgbit 6, l 3, no key limb dropped):
   keys made on the card, ``gates.NAND`` on the 4096 bit pairs through K1
   + K2 (700 each) and route (c) (1 K1 + 1400 K9 at l 3), the two routes'
-  words equal.
+  words equal;
+* the portable path (the JAX package's off-TPU cores, no kernel) on the
+  earlier phases' keys and inputs, through ``engine._bootstrap``'s
+  portable routes: phase 5's NAND batch (``blind_rotate``), phase 11's
+  block-binary NAND batch (``blind_rotate_block_portable``), the first
+  256 of phase 8's uint6 batch (``blind_rotate_extended``) and phase 7's
+  AND_OR batch (``bootstrap_many`` on ``blind_rotate``), each output equal
+  to its phase's words with no kernel launched; one portable step
+  (``ops.external_product``), ``negacyclic_extprod_i8`` (``_int_mm``) and
+  the Nussbaumer product at batch 64 timed beside K2, the last two equal
+  to the dense product.
 
 Before that it builds the nine Hopper kernels from
 ``go_tfhe_tpu_torch/csrc/`` and holds each against its plain PyTorch
@@ -100,10 +110,12 @@ import torch
 
 from go_tfhe_tpu_torch import (bitutils, cipher, engine, gates, keys, lut,
                                parallel, params, proxyreenc)
+from go_tfhe_tpu_torch.experimental import nussbaumer
 from go_tfhe_tpu_torch.models import adders, comparators
 from go_tfhe_tpu_torch.ops import (_build, blindrotate, cuda_ext, cuda_ext_t,
                                    cuda_extprod, cuda_pipe, cuda_rotate,
-                                   cuda_step, cuda_t)
+                                   cuda_step, cuda_t, decompose, extprod,
+                                   polymul)
 from go_tfhe_tpu_torch.ops.blindrotate import block_bands
 from go_tfhe_tpu_torch.utils import profiling
 from go_tfhe_tpu_torch.utils.torus import f64_to_torus, wrap_i32
@@ -148,6 +160,13 @@ PIPE_HALF = BATCH // 2
 # The per-bit routes of phase 12 (per_bit_routes_phase).
 ROUTES = ("k1k2", "a_fused_k3", "b_k7k8", "c_pipe_k9")
 PROFILE = False           # set by --profile
+# Phase 20, the portable path: the first UINT6_PORTABLE ciphertexts of
+# phase 8's batch, and the Nussbaumer product's batch.
+UINT6_PORTABLE = 256
+NUSS_BATCH = 64
+# H100 SXM dense FP64 tensor-core peak (NVIDIA's data sheet), the floor of
+# the portable step's three float64 products.
+FP64_TFLOPS = 67.0
 MESH_COPIES = 4
 # The five example programs (examples/torch_*.py) at the full profiles
 # their docstrings name for a real run, and the K1 and K2 launches of each:
@@ -897,12 +916,13 @@ def step_pipe_kernels_against_plain(gen, gen_k9, dev, errs, times):
 
 
 def pbs_phase(gen, dev, p, batch: int, f, steady: bool,
-              kernels: tuple = K4K5) -> dict:
+              kernels: tuple = K4K5, keep: bool = False) -> dict:
     """Keygen on the card, then ``lut.bootstrap_func`` with f on a batch of
     messages cycling over the message space: decryption, phase margin
     against the half-segment 2^31/m/2, launch counts (``kernels``, lwe_n
     per bootstrap), batch times, peak memory, and PBS_PLAIN_CHECK
-    ciphertexts against the plain path.  Returns the figures."""
+    ciphertexts against the plain path.  Returns the figures, and with
+    ``keep`` the run's (key, inputs, outputs, table) under "run"."""
     m = p.message_modulus
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -961,10 +981,13 @@ def pbs_phase(gen, dev, p, batch: int, f, steady: bool,
     done(t1, f"{PBS_PLAIN_CHECK} ciphertexts bit-equal through the plain "
          "path; ")
     profile_batch(p.name, lambda: lut.bootstrap_func(ck, ct, f, m))
-    return {"keygen_s": keygen_s, "keygen_peak_bytes": keygen_peak,
-            "first_batch_s": first_s, "steady_batch_s": steady_s,
-            "pbs_per_s": rate, "margin_sigmas": sig,
-            "peak_bytes": peak, "launches": launches}
+    fig = {"keygen_s": keygen_s, "keygen_peak_bytes": keygen_peak,
+           "first_batch_s": first_s, "steady_batch_s": steady_s,
+           "pbs_per_s": rate, "margin_sigmas": sig,
+           "peak_bytes": peak, "launches": launches}
+    if keep:
+        fig["run"] = (ck, ct, out, table)
+    return fig
 
 
 def block_nand_phase(gen, dev, p, bits_a, bits_b) -> dict:
@@ -1028,6 +1051,7 @@ def block_nand_phase(gen, dev, p, bits_a, bits_b) -> dict:
                "gates_per_s": batch / steady_s, "margin_sigmas": sig,
                "peak_bytes": peak, "launches": launches}
         if prefer:
+            out["run"] = (ck, ct_a, ct_b, res)
             t1 = time.perf_counter()
             prepared = engine.prepare_nand(ct_a[:PLAIN_CHECK],
                                            ct_b[:PLAIN_CHECK])
@@ -1149,6 +1173,140 @@ def exact_phase(gen, dev, bits_a, bits_b) -> dict:
         print(f"   {p.name} {label:10s} {fig['gates_per_s']:9.1f} gates/s, "
               f"margin {fig['margin_sigmas']:.1f} sigma", flush=True)
     return {"keygen_s": keygen_s, **routes}
+
+
+def on_card(t: torch.Tensor, what: str) -> torch.Tensor:
+    check(t.device.type == "cuda", f"{what}: output on {t.device}, not on "
+          "the card")
+    return t
+
+
+def portable_phase(gen, dev, p, ck, ct_a, ct_b, nand_out, and_or, u6_run,
+                   blk_run, k2_ms: float) -> dict:
+    """Phase 20: the portable path (the JAX package's off-TPU cores:
+    gather rotations and the Toeplitz external product's three float64
+    products on the D bands, no kernel) on the earlier phases' keys and
+    inputs: phase 5's NAND batch (``blind_rotate``, a first and a steady
+    batch), phase 11's block-binary NAND batch
+    (``blind_rotate_block_portable``), the first UINT6_PORTABLE of phase
+    8's uint6 batch (``blind_rotate_extended``) and phase 7's AND_OR batch
+    (``bootstrap_many`` on ``blind_rotate``, theta 1, k 2), each output on
+    the card and equal to its phase's words; then, at ``p`` and BATCH, one
+    portable step (``ops.external_product``) beside K2's ``k2_ms``, its
+    Toeplitz build and one float64 product alone, ``negacyclic_extprod_i8``
+    (``_int_mm``) and the Nussbaumer product at NUSS_BATCH, both equal to
+    the dense product.  No kernel may launch during the phase.  ``gen``
+    (its own seed) draws the step's accumulator.  Returns the figures."""
+    out = {}
+    torch.cuda.synchronize()
+    cuda_t.reset_launch_counts()
+
+    prepared = engine.prepare_nand(ct_a, ct_b)
+
+    def nand():
+        return engine._bootstrap(ck, prepared, None, True, plain=False,
+                                 route="blind_rotate")
+    t1 = time.perf_counter()
+    res = on_card(nand(), "portable NAND")
+    first_s = done(t1, "NAND, blind_rotate: first batch ")
+    t1 = time.perf_counter()
+    res2 = nand()
+    steady_s = done(t1, "NAND, blind_rotate: steady batch ")
+    check(torch.equal(res, nand_out) and torch.equal(res2, res),
+          "portable NAND: the words differ from phase 5's")
+    out["nand"] = {"first_batch_s": first_s, "steady_batch_s": steady_s,
+                   "gates_per_s": BATCH / steady_s}
+    print(f"   {BATCH} words equal to phase 5's; gates/s steady "
+          f"{BATCH / steady_s:.1f}", flush=True)
+    profile_batch("NAND, portable blind_rotate", nand)
+
+    bck, bct_a, bct_b, bres = blk_run
+    t1 = time.perf_counter()
+    res = on_card(engine._bootstrap(
+        bck, engine.prepare_nand(bct_a, bct_b), None, True, plain=False,
+        route="blind_rotate_block_portable"), "portable block NAND")
+    block_s = done(t1, "block NAND, blind_rotate_block_portable: batch ")
+    check(torch.equal(res, bres),
+          "portable block NAND: the words differ from phase 11's")
+    out["block_nand"] = {"batch_s": block_s, "gates_per_s": BATCH / block_s}
+
+    uck, uct, uout, table = u6_run
+    t1 = time.perf_counter()
+    res = on_card(engine._bootstrap(
+        uck, uct[:UINT6_PORTABLE], table, True, plain=False,
+        route="blind_rotate_extended"), "portable uint6 PBS")
+    ext_s = done(t1, f"{uck.params.name} B={UINT6_PORTABLE}, "
+                 "blind_rotate_extended: batch ")
+    check(torch.equal(res, uout[:UINT6_PORTABLE]),
+          "portable uint6 PBS: the words differ from phase 8's")
+    out["uint6_centered"] = {"batch": UINT6_PORTABLE, "batch_s": ext_s,
+                             "pbs_per_s": UINT6_PORTABLE / ext_s}
+
+    t1 = time.perf_counter()
+    res = on_card(engine.bootstrap_many(
+        ck, ct_a + ct_b, gates.and_or_lut(p, dev), k=2, theta=1,
+        route="blind_rotate"), "portable AND_OR")
+    many_s = done(t1, "AND_OR, bootstrap_many on blind_rotate: batch ")
+    check(torch.equal(res[0], and_or[0]) and torch.equal(res[1], and_or[1]),
+          "portable AND_OR: the words differ from phase 7's")
+    out["and_or"] = {"batch_s": many_s}
+
+    l2, n = 2 * p.l, p.n
+    acc = wrap_i32(torch.randint(0, 1 << 32, (BATCH, 2, n), generator=gen,
+                                 device=dev, dtype=torch.int64))
+    band = keys.prepare_bootstrap_kernels(ck.bsk[0], p)
+    digits = decompose.gadget_decompose(acc, p)             # (B, 2L, N)
+    dense = on_card(polymul.negacyclic_extprod_toeplitz(digits, band),
+                    "dense product")
+    step_ms = cuda_ms(lambda: extprod.external_product(p, band, acc), 5)
+    toeplitz_ms = cuda_ms(lambda: polymul.toeplitz_from_band(band).permute(
+        0, 2, 1, 3).reshape(l2 * n, 2 * n), 5)
+    a64 = torch.rand((BATCH, l2 * n), generator=gen, device=dev,
+                     dtype=torch.float64)
+    b64 = torch.rand((l2 * n, 2 * n), generator=gen, device=dev,
+                     dtype=torch.float64)
+    gemm_ms = cuda_ms(lambda: a64 @ b64, 5)
+    flops = 3 * 2 * BATCH * l2 * n * 2 * n
+    bound_ms = flops / (FP64_TFLOPS * 1e12) * 1e3
+    print(f"   portable step (ops.external_product) {p.name} B={BATCH}: "
+          f"{step_ms:.4f} ms ({step_ms / k2_ms:.2f} x K2's {k2_ms:.4f}); "
+          f"Toeplitz build {toeplitz_ms:.4f} ms, one float64 product "
+          f"{gemm_ms:.4f} ms; FP64 bound {bound_ms:.4f} ms", flush=True)
+
+    d8 = digits.to(torch.int8)
+    kern8 = polymul.split_balanced_limbs_i8(
+        polymul.extprod_kernel_from_trgsw(ck.bsk[0]), 4)
+    got = on_card(polymul.negacyclic_extprod_i8(d8, kern8), "i8 form")
+    check(torch.equal(got, dense),
+          "negacyclic_extprod_i8 differs from the dense product")
+    i8_ms = cuda_ms(lambda: polymul.negacyclic_extprod_i8(d8, kern8), 5)
+    i8_bound_ms = (2 * BATCH * l2 * n * 4 * 2 * n
+                   / (profiling.H100_PEAKS["h100"]["int8_tops"] * 1e12) * 1e3)
+    print(f"   negacyclic_extprod_i8 (_int_mm) B={BATCH}: {i8_ms:.4f} ms; "
+          f"int8 bound {i8_bound_ms:.4f} ms", flush=True)
+
+    dn = digits[:NUSS_BATCH]
+    got = on_card(nussbaumer.extprod_nuss_ref(dn, ck.bsk[0]), "Nussbaumer")
+    check(torch.equal(got, dense[:NUSS_BATCH]),
+          "the Nussbaumer product differs from the dense product")
+    nuss_ms = cuda_ms(lambda: nussbaumer.extprod_nuss_ref(dn, ck.bsk[0]), 5)
+    dense_small_ms = cuda_ms(
+        lambda: polymul.negacyclic_extprod_toeplitz(dn, band), 5)
+    print(f"   extprod_nuss_ref B={NUSS_BATCH}: {nuss_ms:.4f} ms, dense "
+          f"{dense_small_ms:.4f} ms; words equal", flush=True)
+    out["step"] = {"profile": p.name, "batch": BATCH,
+                   "external_product_ms": step_ms, "k2_ms": k2_ms,
+                   "toeplitz_build_ms": toeplitz_ms,
+                   "one_f64_product_ms": gemm_ms,
+                   "fp64_bound_ms": bound_ms,
+                   "extprod_i8_int_mm_ms": i8_ms,
+                   "extprod_i8_bound_ms": i8_bound_ms,
+                   "nussbaumer_batch": NUSS_BATCH,
+                   "nussbaumer_ms": nuss_ms,
+                   "dense_at_nussbaumer_batch_ms": dense_small_ms}
+    launched = {k: v for k, v in cuda_t.launch_counts.items() if v}
+    check(not launched, f"the portable path launched kernels: {launched}")
+    return out
 
 
 def timed_run(label: str, fn) -> tuple:
@@ -1752,7 +1910,7 @@ def main() -> int:
     t0 = phase(f"8. {params.UINT6_CENTERED.name} PBS, batch {UINT6_BATCH}, "
                "through lut.bootstrap_func")
     u6 = pbs_phase(gen, dev, params.UINT6_CENTERED, UINT6_BATCH,
-                   lambda x: (3 * x + 1) % m6, steady=True)
+                   lambda x: (3 * x + 1) % m6, steady=True, keep=True)
     check(u6["margin_sigmas"] >= MIN_SIGMAS,
           f"uint6 noise margin {u6['margin_sigmas']:.1f} sigma below "
           f"{MIN_SIGMAS}")
@@ -1834,6 +1992,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     exact = exact_phase(gen, dev, bits_a, bits_b)
     exact_s = done(t0)
+
+    t0 = phase(f"20. the portable path (no kernel) at {p.name}: NAND, block "
+               "NAND, uint6 and AND_OR against phases 5, 11, 8 and 7; step "
+               "times")
+    torch.cuda.empty_cache()
+    gen_p = torch.Generator(device=dev).manual_seed(args.seed + 2)
+    portable = portable_phase(gen_p, dev, p, ck, ct_a, ct_b, out,
+                              (out_and, out_or), u6.pop("run"),
+                              blk.pop("run"), times["extprod_t"][0])
+    portable["phase_s"] = done(t0)
 
     runs = {"nand": launches, "and_or": and_or_launches,
             "uint6_centered": u6["launches"],
@@ -1971,7 +2139,8 @@ def main() -> int:
                             for label, fig in exact.items()
                             if label in ROUTES}},
         "kernel_shape_times": shape_times,
-        "path_launches": runs}))
+        "path_launches": runs,
+        "portable": portable}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

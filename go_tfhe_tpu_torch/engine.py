@@ -1,5 +1,5 @@
-"""The bootstrap engine (port of ``go_tfhe_tpu/engine.py:43-50, 106-132,
-168-244, 269-321, 337-389``).
+"""The bootstrap engine (port of ``go_tfhe_tpu/engine.py:43-50, 77-93,
+106-156, 168-321, 337-389``).
 
 One code path serves both devices: blind rotation (ops/blindrotate.py)
 -> sample extraction -> identity key switch, as the JAX package's
@@ -41,6 +41,16 @@ package does for transposed keys (for the others it runs the portable
 many-LUT core, whose values are the same).  (On its CPU backend the JAX
 package always runs block-binary keys through the portable block
 rotation; the port follows the TPU's choice on every device.)
+
+The JAX package's portable cores are named routes that :func:`_route`
+never picks: ``engine._bootstrap(ck, ct, tv, key_switch, plain, route=...)``
+with ``route`` "blind_rotate" (``_bootstrap_core``),
+"blind_rotate_extended" (``_bootstrap_core_ext``) or
+"blind_rotate_block_portable" (``_bootstrap_core_block``), and
+``bootstrap_many(..., route="blind_rotate")`` (``_bootstrap_core_many``).
+They read the D bands that keys.prepare_bootstrap_kernels builds from
+``ck.bsk`` on each call, launch no kernel, and run the same form on every
+device (``plain`` does not apply to them).
 """
 
 from __future__ import annotations
@@ -49,8 +59,10 @@ import warnings
 
 import torch
 
-from .keys import CloudKey
-from .ops.blindrotate import (blind_rotate_block, blind_rotate_extended_rm,
+from .keys import CloudKey, prepare_bootstrap_kernels
+from .ops.blindrotate import (blind_rotate, blind_rotate_block,
+                              blind_rotate_block_portable,
+                              blind_rotate_extended, blind_rotate_extended_rm,
                               blind_rotate_extended_t, blind_rotate_t,
                               blind_rotate_tpu)
 from .ops.cuda_ext_t import ext_t_fits
@@ -90,6 +102,9 @@ _ROTATIONS = {f.__name__: f for f in (blind_rotate_t, blind_rotate_block,
                                       blind_rotate_extended_t,
                                       blind_rotate_extended_rm,
                                       blind_rotate_tpu, blind_rotate_pipe)}
+# The portable rotations (the JAX package's off-TPU cores), on D bands.
+_PORTABLE = {f.__name__: f for f in (blind_rotate, blind_rotate_extended,
+                                     blind_rotate_block_portable)}
 
 
 def _route(ck: CloudKey) -> str:
@@ -116,7 +131,8 @@ def _route(ck: CloudKey) -> str:
 def _bootstrap(ck: CloudKey, ct: torch.Tensor, testvec, key_switch: bool,
                plain: bool, route: str | None = None) -> torch.Tensor:
     """The bootstrap through the blind rotation ``route`` (a name of
-    :data:`_ROTATIONS`; :func:`_route`'s by default)."""
+    :data:`_ROTATIONS` or :data:`_PORTABLE`; :func:`_route`'s by
+    default)."""
     p = ck.params
     k = p.poly_extend_factor
     tv = ck.testvec if testvec is None else testvec
@@ -127,8 +143,12 @@ def _bootstrap(ck: CloudKey, ct: torch.Tensor, testvec, key_switch: bool,
     ct2 = ct.reshape(-1, ct.shape[-1])
     if tv.dim() > len(tv_shape):
         tv = tv.reshape((-1,) + tv_shape)
-    rotated = _ROTATIONS[route or _route(ck)](p, ck.bands, ct2, tv,
-                                              plain=plain)
+    route = route or _route(ck)
+    if route in _PORTABLE:
+        rotated = _PORTABLE[route](p, prepare_bootstrap_kernels(ck.bsk, p),
+                                   ct2, tv)
+    else:
+        rotated = _ROTATIONS[route](p, ck.bands, ct2, tv, plain=plain)
     if k > 1:                               # big-poly coefficient 0
         rotated = rotated[:, 0]
     lv1 = sample_extract(rotated, 0)
@@ -155,7 +175,8 @@ def bootstrap_without_key_switch(ck: CloudKey, ct: torch.Tensor,
 
 def bootstrap_many(ck: CloudKey, ct: torch.Tensor, multi_lut: torch.Tensor,
                    k: int, theta: int = 1, key_switch: bool = True,
-                   plain: bool = False) -> torch.Tensor:
+                   plain: bool = False, route: str = "blind_rotate_t"
+                   ) -> torch.Tensor:
     """k function outputs from ONE blind rotation (PBSmanyLUT,
     ``go_tfhe_tpu/engine.py:269-321``).
 
@@ -169,7 +190,8 @@ def bootstrap_many(ck: CloudKey, ct: torch.Tensor, multi_lut: torch.Tensor,
     phase.  The coarse mod switch multiplies its rounding noise by
     2^theta: the JAX package measured 5/1024 wrong at theta = 2 with
     messageModulus 8 at 128bit_fast (NOISE_MANY_r05.json), hence the
-    warning from theta = 2 on."""
+    warning from theta = 2 on.  ``route`` "blind_rotate" runs the portable
+    rotation on D bands instead (``_bootstrap_core_many``)."""
     p = ck.params
     if p.poly_extend_factor != 1:
         raise ValueError("many-LUT needs a plain (N) profile, not "
@@ -186,7 +208,14 @@ def bootstrap_many(ck: CloudKey, ct: torch.Tensor, multi_lut: torch.Tensor,
     lead = ct.shape[:-1]
     ct2 = ct.reshape(-1, ct.shape[-1])
     tv = multi_lut.reshape(-1, 2, p.n) if multi_lut.dim() > 2 else multi_lut
-    rotated = blind_rotate_t(p, ck.bands, ct2, tv, theta=theta, plain=plain)
+    if route == "blind_rotate":
+        rotated = blind_rotate(p, prepare_bootstrap_kernels(ck.bsk, p), ct2,
+                               tv, theta=theta)
+    elif route == "blind_rotate_t":
+        rotated = blind_rotate_t(p, ck.bands, ct2, tv, theta=theta,
+                                 plain=plain)
+    else:
+        raise ValueError(f"bootstrap_many: no route {route!r}")
     lv1 = torch.stack([sample_extract(rotated, t) for t in range(k)])
     out = identity_key_switch(p, ck.ksk, lv1) if key_switch else lv1
     return out.reshape((k,) + lead + out.shape[-1:])

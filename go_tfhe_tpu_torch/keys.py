@@ -1,13 +1,22 @@
 """Secret and cloud (evaluation) keys: generation, conversion, ``.npz`` files
-(port of ``go_tfhe_tpu/keys.py:44-157, 205-302``).
+(port of ``go_tfhe_tpu/keys.py:44-158, 205-302``).
 
 The ``.npz`` format is the JAX package's (``keys.save_cloud_key`` /
 ``save_secret_key``): uint32 arrays ``testvec``, ``ksk``, ``bsk``, the
 profile name and the ``block_binary`` flag; files written by either
 package load in the other.  The CloudKey keeps the raw BSK and the K2
 bands built from it (ops/cuda_t.pack_bsk_band_t), the one band layout that
-every blind rotation reads: the block rotation views the bands of each
+every kernel rotation reads: the block rotation views the bands of each
 block as one block step's rows (ops/blindrotate.block_bands).
+
+Deviation: the JAX CloudKey also carries ``bsk_kernel``, the signed D
+bands of its portable path.  The port's carries no such field: the
+portable rotations (ops/blindrotate.blind_rotate and its extended and
+block forms) take :func:`prepare_bootstrap_kernels`'s bands, which
+``engine._bootstrap`` builds from ``bsk`` on each call that takes a
+portable route (about 46 MB at ``128bit_fast``).  So ``.npz`` files,
+``CloudKey.to``, ``parallel.replicate_keys`` and
+``utils.profiling.key_memory_usage`` see the same fields as before.
 
 Entry points that make tensors from arrays or files put them on the card
 (``device="cuda"``) unless the caller asks for the host with
@@ -25,6 +34,7 @@ import torch
 
 from . import cipher
 from .ops.cuda_t import band_limb_drop, pack_bsk_band_t
+from .ops.polymul import ext_band_from_trgsw
 from .params import TFHEParams, get_params
 from .utils.rng import binary_key, block_binary_key
 from .utils.torus import TORUS, f64_to_torus, from_numpy_u32, i32
@@ -123,6 +133,15 @@ def gen_bsk(gen: torch.Generator, p: TFHEParams, sk: SecretKey
     """BSK[i] = TRGSW encryption of LWE key bit s0[i]
     (cloudkey/cloudkey.go:123-145), on the key_grid_bits grid."""
     return cipher.trgsw_encrypt_torus(gen, sk.lv0, p.bsk_alpha, sk.lv1, p)
+
+
+def prepare_bootstrap_kernels(bsk: torch.Tensor, p: TFHEParams
+                              ) -> torch.Tensor:
+    """Raw BSK (lwe_n, 2L, 2, N) -> the signed D bands (lwe_n, 2L, 2, 2N)
+    int32 of the portable Toeplitz external product
+    (``go_tfhe_tpu/keys.py:153-158``), on the BSK's device."""
+    del p
+    return ext_band_from_trgsw(bsk)
 
 
 def _cloud_key(p: TFHEParams, testvec, ksk, bsk, block_binary) -> CloudKey:

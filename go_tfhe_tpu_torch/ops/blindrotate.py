@@ -1,11 +1,11 @@
 """Blind rotation — the bootstrap hot loop, batched over ciphertexts
-(port of ``go_tfhe_tpu/ops/blindrotate.py:39-79, 162-255, 338-531``).
+(port of ``go_tfhe_tpu/ops/blindrotate.py``).
 
 Per input LWE coefficient the accumulator is rotated by the mod-switched
 coefficient and CMUXed with the corresponding bootstrapping-key row; the
 lwe_n steps are sequential and throughput comes from the batch axis.  One
-code path serves both devices: the two step kernels (ops/cuda_t.py) run
-their plain versions on CPU tensors and the Hopper kernels on CUDA tensors.
+code path serves both devices: the step kernels (ops/cuda_*.py) run their
+plain versions on CPU tensors and the Hopper kernels on CUDA tensors.
 
 Mod switch (evaluator/evaluator.go:116,122):
     b~ = 2N - ((b + 2^(31-NBIT-1)) >> (32-NBIT-1))
@@ -24,10 +24,31 @@ may take :func:`blind_rotate_block`: one step per block, K7 + K8
 :func:`blind_rotate_tpu` is the per-bit rotation in the row-major layout:
 K7 at bs = 1 + K8 per step, or the fused step K3 (ops/cuda_step.py) with
 :data:`FUSED_STEP`.  The half-batch pipelined rotation (K1 + K9) is
-ops/cuda_pipe.blind_rotate_pipe.
+ops/cuda_pipe.blind_rotate_pipe.  These read the K2 bands
+(cuda_t.pack_bsk_band_t), the port's one kernel band layout.
 
-Every function reads the K2 bands (cuda_t.pack_bsk_band_t), the port's one
-band layout.
+The portable rotations :func:`blind_rotate`, :func:`blind_rotate_extended`
+and :func:`blind_rotate_block_portable` are the JAX package's off-TPU path
+(the one its dispatch takes on any other backend): gather rotations
+(rotate.monomial_mul, monomial_mul_blocks) and the Toeplitz external
+product (ops/extprod.py) on the signed D bands
+(keys.prepare_bootstrap_kernels), no kernel.  They share nothing with the
+kernels' arithmetic, and give the kernels' words wherever the kernels'
+dropped key limbs are zero (every key on its profile's grid).
+
+The nine rotations by name (the port keeps the names that its routes, the
+launch counters and chip_smoke.py already read, so three differ):
+
+    JAX package                       port
+    blind_rotate                      blind_rotate
+    blind_rotate_extended             blind_rotate_extended
+    blind_rotate_extended_tpu         blind_rotate_extended_rm
+    blind_rotate_extended_t           blind_rotate_extended_t
+    blind_rotate_block                blind_rotate_block_portable
+    blind_rotate_block_tpu            blind_rotate_block
+    blind_rotate_tpu                  blind_rotate_tpu
+    blind_rotate_t                    blind_rotate_t
+    pallas_pipe.blind_rotate_pipe     cuda_pipe.blind_rotate_pipe
 """
 
 from __future__ import annotations
@@ -44,6 +65,9 @@ from .cuda_rotate import rotate_decompose, rotate_decompose_ref
 from .cuda_step import fused_rotate_step, fused_rotate_step_ref
 from .cuda_t import (band_limb_drop, extprod_t, extprod_t_ref,
                      rotate_decompose_t, rotate_decompose_t_ref)
+from .decompose import gadget_decompose
+from .extprod import cmux, external_product
+from .polymul import negacyclic_extprod_toeplitz
 from .rotate import monomial_mul, monomial_mul_blocks
 
 # Run blind_rotate_tpu's steps through the fused step kernel K3 instead of
@@ -78,6 +102,92 @@ def mod_switch_general(x: torch.Tensor, modulus: int) -> torch.Tensor:
     a_hi, a_lo = x >> 16, x & 0xFFFF
     acc = a_hi * modulus + (((a_lo * modulus) & mask) >> 16) + (1 << 15)
     return wrap_i32((acc & mask) >> 16)
+
+
+def blind_rotate(p: TFHEParams, bsk_bands: torch.Tensor, ct: torch.Tensor,
+                 testvec: torch.Tensor, theta: int = 0) -> torch.Tensor:
+    """Blind-rotate a batch of LWE ciphertexts, portable path
+    (``go_tfhe_tpu/ops/blindrotate.py:82-117``): per step a gather
+    rotation and :func:`.extprod.cmux`.
+
+    bsk_bands: (n_lwe, 2L, 2, 2N) int32 signed D bands
+               (keys.prepare_bootstrap_kernels).
+    ct:        (..., n_lwe+1) int32 words.
+    testvec:   (2, N) or (..., 2, N) int32 words.
+    theta:     coarse mod-switch exponent for many-LUT extraction.
+    Returns (..., 2, N) int32 TRLWE accumulators.
+    """
+    n_lwe = p.lwe_n
+    lead = ct.shape[:-1]
+    b_tilda = 2 * p.n - mod_switch_2n(ct[..., n_lwe], p, theta)    # (...,)
+    acc = monomial_mul(testvec.expand(lead + (2, p.n)), b_tilda[..., None])
+    a_tilda = mod_switch_2n(ct[..., :n_lwe], p, theta)          # (..., n_lwe)
+    for i in range(n_lwe):
+        rotated = monomial_mul(acc, a_tilda[..., i, None])
+        acc = cmux(p, bsk_bands[i], acc, rotated)
+    return acc
+
+
+def blind_rotate_extended(p: TFHEParams, bsk_bands: torch.Tensor,
+                          ct: torch.Tensor, lut_blocks: torch.Tensor
+                          ) -> torch.Tensor:
+    """Blind rotation over an extended look-up table of size k*N, portable
+    path (``go_tfhe_tpu/ops/blindrotate.py:120-159``): the accumulator is k
+    TRLWE blocks of the interleaved big polynomial
+    (rotate.monomial_mul_blocks), each CMUX contracts every block against
+    the same D band, and the mod switch targets [0, 2kN).
+
+    bsk_bands:  (n_lwe, 2L, 2, 2N) int32 signed D bands.
+    ct:         (..., n_lwe+1) int32 words.
+    lut_blocks: (k, 2, N) or (..., k, 2, N) int32 trivial TRLWE blocks.
+    Returns (..., k, 2, N); the bootstrap reads block 0 at index 0.
+    """
+    n_lwe, k = p.lwe_n, p.poly_extend_factor
+    big = 2 * k * p.n
+    lead = ct.shape[:-1]
+    b_tilda = big - mod_switch_general(ct[..., n_lwe], big)
+    acc = monomial_mul_blocks(lut_blocks.expand(lead + (k, 2, p.n)),
+                              b_tilda, k)
+    a_tilda = mod_switch_general(ct[..., :n_lwe], big)         # (..., n_lwe)
+    for i in range(n_lwe):
+        rotated = monomial_mul_blocks(acc, a_tilda[..., i], k)
+        # block-wise CMUX: k is one more batch axis of the contraction
+        acc = acc + external_product(p, bsk_bands[i], rotated - acc)
+    return acc
+
+
+def blind_rotate_block_portable(p: TFHEParams, bsk_bands: torch.Tensor,
+                                ct: torch.Tensor, testvec: torch.Tensor
+                                ) -> torch.Tensor:
+    """Block blind rotation, portable path (the JAX package's
+    ``blind_rotate_block``, ``go_tfhe_tpu/ops/blindrotate.py:258-310``);
+    needs a block-binary lv0 key.  One step per block of bs = block_size
+    bits, acc' = acc + sum_j BSK[j] (x) (X^(a_j) acc - acc): the bs
+    rotations' differences decomposed together and contracted in ONE
+    Toeplitz product of bs*2L rows; a ragged tail of n_lwe mod bs bits
+    takes per-bit CMUX steps.
+
+    bsk_bands: (n_lwe, 2L, 2, 2N) int32 signed D bands.
+    ct:        (..., n_lwe+1) int32 words;  testvec: (2, N) or (..., 2, N).
+    Returns (..., 2, N) int32 TRLWE accumulators.
+    """
+    bs, l2 = p.block_size, 2 * p.l
+    full, rem = divmod(p.lwe_n, bs)
+    lead = ct.shape[:-1]
+    b_tilda = 2 * p.n - mod_switch_2n(ct[..., p.lwe_n], p)
+    acc = monomial_mul(testvec.expand(lead + (2, p.n)), b_tilda[..., None])
+    a_tilda = mod_switch_2n(ct[..., :p.lwe_n], p)              # (..., n_lwe)
+    a_blk = a_tilda[..., :full * bs].reshape(lead + (full, bs))
+    band_blk = bsk_bands[:full * bs].reshape(full, bs * l2, 2, 2 * p.n)
+    for i in range(full):
+        rotated = monomial_mul(acc[..., None, :, :], a_blk[..., i, :, None])
+        diff = rotated - acc[..., None, :, :]                  # (...,bs,2,N)
+        digits = gadget_decompose(diff, p).reshape(lead + (bs * l2, p.n))
+        acc = acc + negacyclic_extprod_toeplitz(digits, band_blk[i])
+    for idx in range(full * bs, full * bs + rem):      # ragged tail, per bit
+        rotated = monomial_mul(acc, a_tilda[..., idx, None])
+        acc = cmux(p, bsk_bands[idx], acc, rotated)
+    return acc
 
 
 def blind_rotate_t(p: TFHEParams, bands: torch.Tensor, ct: torch.Tensor,
@@ -191,8 +301,9 @@ def blind_rotate_block(p: TFHEParams, bands: torch.Tensor, ct: torch.Tensor,
                        testvec: torch.Tensor, plain: bool = False
                        ) -> torch.Tensor:
     """Block blind rotation (``go_tfhe_tpu/ops/blindrotate.py:451-531``,
-    blind_rotate_block_tpu; bit-exact with the portable blind_rotate_block,
-    :258-310, on keys whose dropped limbs are zero).  Needs a block-binary
+    blind_rotate_block_tpu; bit-exact with
+    :func:`blind_rotate_block_portable` on keys whose dropped limbs are
+    zero).  Needs a block-binary
     lv0 key: with at most one key bit set per block,
     X^(sum_j s_j a_j) = 1 + sum_j s_j (X^(a_j) - 1), so one step per block
     of bs = block_size bits is

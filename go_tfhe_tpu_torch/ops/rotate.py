@@ -57,6 +57,53 @@ def monomial_mul_blocks(acc: torch.Tensor, t: torch.Tensor, k: int
     return monomial_mul(gathered, q[..., None])                   # over (C, N)
 
 
+def _block_rotate_static(acc: torch.Tensor, shift: int, k: int
+                         ) -> torch.Tensor:
+    """Rotate the interleaved big polynomial by X^shift, shift a Python
+    integer in [0, 2kN) (``go_tfhe_tpu/ops/rotate.py:77-102``).
+
+    acc: (..., k, C, N).  With s = shift % k and q = shift // k:
+    out_block[r'] = Y^(q+1) block[r'-s+k] for r' < s, Y^q block[r'-s]
+    otherwise — static slices and concatenations only."""
+    n = acc.shape[-1]
+    s, q = shift % k, shift // k
+
+    def rot_y(x: torch.Tensor, amount: int) -> torch.Tensor:
+        amount %= 2 * n
+        a = amount % n
+        if a:
+            x = torch.cat([torus_not(x[..., n - a:]), x[..., :n - a]],
+                          dim=-1)
+        return torus_not(x) if amount >= n else x
+
+    hi = rot_y(acc[..., :k - s, :, :], q)          # plain:  Y^q
+    if not s:
+        return hi
+    lo = rot_y(acc[..., k - s:, :, :], q + 1)      # wraps: Y^(q+1)
+    return torch.cat([lo, hi], dim=-3)
+
+
+def monomial_mul_blocks_log(acc: torch.Tensor, t: torch.Tensor, k: int
+                            ) -> torch.Tensor:
+    """Rotation of the extended polynomial by X^t composed from static
+    rotations by 2^j selected by the bits of t (the JAX package's TPU form,
+    ``go_tfhe_tpu/ops/rotate.py:105-124``).  Bit-exact with
+    :func:`monomial_mul_blocks` for every t: each wraparound applies
+    x -> ~x, and wrap parity composes as in :func:`monomial_mul_log`.
+
+    acc: (..., k, C, N) int32 words;  t: integer tensor broadcastable to
+    acc.shape[:-3]; taken mod 2kN."""
+    n = acc.shape[-1]
+    big = 2 * k * n
+    t = torch.remainder(t.to(torch.int64), big)
+    out = acc
+    for j in range((big - 1).bit_length()):
+        rolled = _block_rotate_static(out, (1 << j) % big, k)
+        bit = (((t >> j) & 1) > 0)[..., None, None, None]
+        out = torch.where(bit, rolled, out)
+    return out
+
+
 def monomial_mul_log(poly: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """Rotation by X^k composed from static rotations by 2^j selected by the
     bits of k (the JAX package's TPU form).  Bit-exact with

@@ -39,11 +39,12 @@ def test_package_imports_without_jax():
 
 
 def test_mesh_utils_and_examples_import_without_jax():
-    """parallel/, every module of utils/ and the five examples/torch_*.py
-    programs import with JAX blocked, and load nothing of it or of the JAX
-    package."""
+    """parallel/, experimental/, every module of utils/ and the five
+    examples/torch_*.py programs import with JAX blocked, and load nothing
+    of it or of the JAX package."""
     res = _run_without_jax("""
         import glob, importlib.util
+        import go_tfhe_tpu_torch.experimental.nussbaumer
         import go_tfhe_tpu_torch.parallel.mesh
         from go_tfhe_tpu_torch.utils import metrics, profiling, rng, torus
         paths = sorted(glob.glob("examples/torch_*.py"))
