@@ -37,8 +37,10 @@ entry points a user calls:
   gate bootstraps) and ``ripple_add_manylut`` (8 many-LUT bootstraps);
 * ``uint5`` (lwe_n 1071, N 2048, three digit limbs; K1 + K2): keygen on
   the card, ``adders.add8_pbs`` on 2048 pairs of 8-bit numbers (3
-  programmable bootstraps) and ``models.comparators.ge``/``lt``/``eq`` on
-  every pair of [0, 16)^2, tiled to 2048;
+  programmable bootstraps; at most the profile's own rate of wrong sums,
+  each held against the plain path) and
+  ``models.comparators.ge``/``lt``/``eq`` on every pair of [0, 16)^2,
+  tiled to 2048;
 * proxy re-encryption at ``128bit_fast``'s level 0 (no kernel: the key
   switch's digit contraction): keys made on the card, symmetric and
   asymmetric re-encryption of 4096 bits and a 3-hop chain, the card's
@@ -68,7 +70,17 @@ entry points a user calls:
   to its phase's words with no kernel launched; one portable step
   (``ops.external_product``), ``negacyclic_extprod_i8`` (``_int_mm``) and
   the Nussbaumer product at batch 64 timed beside K2, the last two equal
-  to the dense product.
+  to the dense product;
+* the measuring entry points (``bench_torch.py`` plain, ``--exact``,
+  ``--block``, ``--pipe`` and ``--selftest-guard``, which must exit 1;
+  ``tools/torch_bench_profiles.py`` at ``80bit_fast``/``110bit_fast``,
+  the three noise tools, ``tools/torch_bench_ext.py`` at the floor and
+  centered uint6/7/8, ``bench_micro_torch.py``, ``bench_scaling_torch.py``)
+  through their ``main`` at full profiles, each with its exact launches
+  and JSON records naming the card; the new configurations' outputs
+  (80/110bit_fast, floor uint6/7/8, many-LUT theta 0-2) against the plain
+  path, and ``128bit_fast`` with no key limb dropped (K2 at lo 0), whose
+  words must equal ``128bit_fast``'s on the same keys.
 
 Before that it builds the nine Hopper kernels from
 ``go_tfhe_tpu_torch/csrc/`` and holds each against its plain PyTorch
@@ -85,7 +97,8 @@ just after.
 
 Any failed check raises, so the script exits non-zero and prints no
 result.  It needs a CUDA device: there is no CPU run.  On success its last
-two lines are a JSON object describing each kernel and then
+three lines are a JSON object of the entry points' records
+(``"entry_points"``), one describing each kernel and then
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -117,7 +130,7 @@ from go_tfhe_tpu_torch.ops import (_build, blindrotate, cuda_ext, cuda_ext_t,
                                    cuda_step, cuda_t, decompose, extprod,
                                    polymul)
 from go_tfhe_tpu_torch.ops.blindrotate import block_bands
-from go_tfhe_tpu_torch.utils import profiling
+from go_tfhe_tpu_torch.utils import benchmarking, profiling
 from go_tfhe_tpu_torch.utils.torus import f64_to_torus, wrap_i32
 from rotdec_times import graph_ms
 
@@ -136,6 +149,25 @@ U5_BATCH = 2048
 # half-segment, 0 wrong of 1024), so the 8 sigma floor cannot hold there;
 # 4.5 sigma leaves room for sampling noise on a batch of 2048.
 U5_MIN_SIGMAS = 4.5
+# add8_pbs's wrong sums.  Its third PBS's input (a_hi + b_hi + a
+# bootstrapped carry) lies about 3.4 sigma inside its half-segment, so the
+# profile itself (JAX's add8_pbs, word for word) decrypts some sums wrong.
+# Measured on the card (NVIDIA H100 80GB HBM3, 700 W) over 16 draws of
+# uint5 keys and 2048 input pairs, seeds 1-16: the wrong sums of each draw
+# (U5_DRAW_WRONG, 29 of 32768) and the third input's std after the mod
+# switch (2^23.20 to 2^23.31).  U5_MAX_WRONG is the smallest W with
+# P(Binomial(U5_BATCH, p) > W) < 1e-6, p the one-sided upper 95%
+# (Clopper-Pearson) limit of the measured rate per sum, 1.21e-3; the std
+# ceiling is the draws' largest plus 0.1 in log2.  The two bounds
+# disagree: the counts are overdispersed (variance 3.63 against a
+# mean of 1.81) because the rate follows the key's std, and a key at the
+# ceiling (3.0 sigma of the half-segment, 2.6e-3 to 2.9e-3 wrong a sum)
+# would pass more than 13 wrong sums with a probability of 1e-3 to 3e-3.
+# W holds at 1e-6 only up to the draws' largest std, 2^23.31; a key
+# between that and the ceiling that fails W shows this tail (PERF.md §7).
+U5_DRAW_WRONG = (0, 3, 1, 0, 1, 4, 1, 7, 0, 3, 3, 1, 0, 1, 1, 3)
+U5_MAX_WRONG = 13
+U5_PBS3_STD_LOG2_MAX = 23.41
 # The many-LUT bootstrap at theta 1 measured 8.2 sigma against the mod-8
 # half-segment 2^27 (NOISE_MANY_r05.json); with that mean, 8 sigma would
 # fail on sampling noise alone.
@@ -172,6 +204,74 @@ MESH_COPIES = 4
 # their docstrings name for a real run, and the K1 and K2 launches of each:
 # 8 gate bootstraps (6 gates and MUX's 2) x 700 steps; 7 PBS x 1071; 3 PBS
 # x 1071 + 40 gate bootstraps x 700; 8 many-LUT bootstraps x 700; none.
+# Phase 21, the measuring entry points: each run's (label, script, argv,
+# exit code, the kernel launches of the whole run as {kernel: count}, the
+# measuring core whose calls are held against the plain path as (module,
+# function, kind), or None).  A core's kind says what its call computes:
+# "nand" a NAND batch, "many" a many-LUT bootstrap at theta, "identity" and
+# "plus_one" a PBS of the table x -> x or x -> x+1 mod m.
+# Launches: bench_torch and torch_bench_profiles run a checked batch and
+# 5 timed ones; torch_bench_ext a first batch and 2 timed ones a profile
+# (its portable batches launch nothing); bench_micro_torch 5 + 2 x 4 + 4
+# gate bootstraps (first batch and timed loop, latency at batch 1 and
+# 128, the 128bit_fast rows) and 3 + 1 uint5 PBS; bench_scaling_torch a
+# warm and 3 timed batches; --selftest-guard stops after its first batch.
+ENTRY_PORTABLE_BATCH = 16
+ENTRY_PLAIN_CHECK = 4
+
+
+def _n(name: str) -> int:
+    return params.get_params(name).lwe_n
+
+
+def _launches(kernels: tuple, count: int, **more) -> dict:
+    return {**dict.fromkeys(kernels, count), **more}
+
+
+def entry_runs() -> tuple:
+    fast, exact = _n("128bit_fast"), _n("128bit")
+    block = -(-fast // params.P128_FAST.block_size)
+    ext = ("--batch", "256", "--portable-batch", str(ENTRY_PORTABLE_BATCH))
+    return (
+        ("bench", "bench_torch.py", [], 0, _launches(K1K2, 6 * fast), None),
+        ("bench_exact", "bench_torch.py", ["--exact"], 0,
+         _launches(K1K2, 6 * exact), None),
+        ("bench_block", "bench_torch.py", ["--block"], 0,
+         _launches(K7K8, 6 * block), None),
+        ("bench_pipe", "bench_torch.py", ["--pipe"], 0,
+         {"rotate_decompose_t": 6, "pipe_step": 6 * 2 * fast}, None),
+        ("bench_selftest_guard", "bench_torch.py", ["--selftest-guard"], 1,
+         _launches(K1K2, fast), None),
+        ("bench_profiles", "tools/torch_bench_profiles.py", [], 0,
+         _launches(K1K2, 6 * (_n("80bit_fast") + _n("110bit_fast"))),
+         ("bench_torch", "measure", "nand")),
+        ("noise_margin", "tools/torch_noise_margin.py", [], 0,
+         _launches(K1K2, 2 * fast + _n("80bit_fast")), None),
+        ("noise_margin_pbs", "tools/torch_noise_margin_pbs.py", [], 0,
+         _launches(K4K5, 2 * _n("uint6")), ("torch_noise_margin_pbs",
+                                            "measure", "identity")),
+        ("noise_many", "tools/torch_noise_many.py", [], 0,
+         _launches(K1K2, 3 * fast), ("torch_noise_many", "measure", "many")),
+        ("bench_ext_uint6", "tools/torch_bench_ext.py",
+         ["--profiles", "uint6,uint6_centered", "--batch", "2048",
+          "--portable-batch", str(ENTRY_PORTABLE_BATCH)], 0,
+         _launches(K4K5, 6 * _n("uint6")),
+         ("torch_bench_ext", "accuracy", "plus_one")),
+        ("bench_ext_uint7", "tools/torch_bench_ext.py",
+         ["--profiles", "uint7,uint7_centered", *ext], 0,
+         _launches(K4K5, 6 * _n("uint7")),
+         ("torch_bench_ext", "accuracy", "plus_one")),
+        ("bench_ext_uint8", "tools/torch_bench_ext.py",
+         ["--profiles", "uint8,uint8_centered", *ext], 0,
+         _launches(K6K8, 6 * _n("uint8")),
+         ("torch_bench_ext", "accuracy", "plus_one")),
+        ("bench_micro", "bench_micro_torch.py", [], 0,
+         _launches(K1K2, 17 * exact + 4 * _n("uint5")), None),
+        ("bench_scaling", "bench_scaling_torch.py", [], 0,
+         _launches(K1K2, 4 * exact), None),
+    )
+
+
 EXAMPLES = (
     ("torch_simple_gates", ["--profile", "128bit_fast"], 8 * 700),
     ("torch_programmable_bootstrap", ["--profile", "uint5"], 7 * 1071),
@@ -1344,21 +1444,25 @@ def bool_margin(ct, key, truth, what: str, floor: float = MIN_SIGMAS,
     return sig
 
 
-def message_margin(ct, key, want, m: int, what: str, floor: float) -> float:
-    """Every modulus-m message output (lv0 key ``key``) decrypts to
-    ``want``, and its phase keeps at least ``floor`` sigma of the 2^31/m/2
-    half-segment."""
+def message_margin(ct, key, want, m: int, what: str, floor: float,
+                   max_wrong: int = 0) -> float:
+    """Every modulus-m message output (lv0 key ``key``) but at most
+    ``max_wrong`` decrypts to ``want``, and its phase keeps at least
+    ``floor`` sigma of the 2^31/m/2 half-segment around the message it
+    decrypts to (a wrong output's noise is that of a right PBS of a
+    wrongly rounded input)."""
     want = np.asarray(want).reshape(-1)
     flat = ct.reshape(-1, ct.shape[-1])
     dec = cipher.lwe_decrypt_message(flat, m, key).cpu().numpy()
     wrong = int((dec != want).sum())
-    check(wrong == 0, f"{wrong}/{want.size} {what} outputs decrypt wrong")
+    check(wrong <= max_wrong,
+          f"{wrong}/{want.size} {what} outputs decrypt wrong")
     half = 2 ** 31 // m // 2
     sig, std, worst = margin_sigmas(
         cipher.lwe_phase(flat, key).cpu().numpy(),
-        cipher.encode_message(want, m).astype(np.int64), half)
-    print(f"   {what}: {want.size}/{want.size} right, phase noise std "
-          f"2^{np.log2(std):.2f}, max |dev| 2^{np.log2(worst + 1):.2f}, "
+        cipher.encode_message(dec, m).astype(np.int64), half)
+    print(f"   {what}: {want.size - wrong}/{want.size} right, phase noise "
+          f"std 2^{np.log2(std):.2f}, max |dev| 2^{np.log2(worst + 1):.2f}, "
           f"margin {sig:.1f} sigma of the 2^{np.log2(half):.0f} "
           f"half-segment", flush=True)
     check(sig >= floor, f"{what} noise margin {sig:.1f} sigma below {floor}")
@@ -1469,11 +1573,13 @@ def uint5_phase(gen, dev) -> dict:
     """Phase 14: uint5 (lwe_n 1071, N 2048, three digit limbs) on the
     card: keygen; ``add8_pbs`` on U5_BATCH random pairs of 8-bit numbers
     (3 bootstraps, K1 + K2), every sum against (a + b) mod 256, margin
-    against the 2^25 half-segment; PBS_PLAIN_CHECK pairs, and the first
-    PBS_PLAIN_CHECK wrong ones, through the plain versions, word for word,
-    and each wrong sum's PBS inputs against their half-segments, printed
-    before the guard fails; ``comparators.ge``, ``lt`` and ``eq`` (m 32)
-    on every pair of [0, 16)^2, tiled to U5_BATCH."""
+    against the 2^25 half-segment; PBS_PLAIN_CHECK pairs, and every wrong
+    one (up to one past U5_MAX_WRONG), through the plain versions, word
+    for word, and each wrong sum's PBS inputs against their half-segments,
+    printed before the guards (at most U5_MAX_WRONG wrong sums, the third
+    PBS input's std at most 2^U5_PBS3_STD_LOG2_MAX); ``comparators.ge``,
+    ``lt`` and ``eq`` (m 32) on every pair of [0, 16)^2, tiled to
+    U5_BATCH."""
     p, m = U5, U5.message_modulus
     n = p.lwe_n
     torch.cuda.reset_peak_memory_stats()
@@ -1503,11 +1609,12 @@ def uint5_phase(gen, dev) -> dict:
     wrong = np.flatnonzero(got != (va + vb) % 256)
 
     # The plain path on the first PBS_PLAIN_CHECK pairs and on every wrong
-    # one (a second witness: the plain versions are held to the JAX
-    # package word for word by the CPU tests).
+    # one up to one past the guard's bound (a second witness: the plain
+    # versions are held to the JAX package word for word by the CPU tests).
     t1 = time.perf_counter()
+    witnessed = wrong[:U5_MAX_WRONG + 1]
     idx = torch.from_numpy(np.union1d(np.arange(PBS_PLAIN_CHECK),
-                                      wrong[:PBS_PLAIN_CHECK])).to(dev)
+                                      witnessed)).to(dev)
     lut_sum, lut_carry = adders.make_adder_luts(ck)
     a_lo, a_hi, b_lo, b_hi = (c[idx] for c in nib)
     plain_lo = engine.bootstrap(ck, a_lo + b_lo, testvec=lut_sum, plain=True)
@@ -1519,8 +1626,8 @@ def uint5_phase(gen, dev) -> dict:
           "add8_pbs: the kernel path disagrees with the plain path")
     check(cuda_t.launch_counts == launches, "the plain path launched a kernel")
     done(t1, f"{len(idx)} add8_pbs pairs bit-equal through the plain path "
-         f"({min(len(wrong), PBS_PLAIN_CHECK)} of the batch's {len(wrong)} "
-         "wrong sums among them); ")
+         f"({len(witnessed)} of the batch's {len(wrong)} wrong sums among "
+         "them); ")
     # The first PBS's input (a_lo + b_lo, which the carry's PBS shares) and
     # the third's (a_hi + b_hi + the bootstrapped carry) after the mod
     # switch to 2N, each pair's deviation from its ideal phase.  Beyond the
@@ -1542,7 +1649,7 @@ def uint5_phase(gen, dev) -> dict:
           f"2^{np.log2(std_in):.2f}, max |dev| "
           f"2^{np.log2(np.abs(devs[1]).max() + 1):.2f}, margin "
           f"{sig_in:.2f} sigma of the 2^25 half-segment", flush=True)
-    for i in wrong[:PBS_PLAIN_CHECK]:
+    for i in witnessed:
         print(f"   wrong sum {i}: {va[i]} + {vb[i]} -> {got[i]}; the plain "
               f"path's words are the same; first PBS input |dev| "
               f"{abs(devs[0][i]) / half:.4f}, third "
@@ -1551,13 +1658,19 @@ def uint5_phase(gen, dev) -> dict:
               f"add8_pbs sum {i} is wrong with both PBS inputs inside "
               "their half-segments")
     sig = min(message_margin(s_lo, sk.lv0, want_lo, m, "add8_pbs low nibble",
-                             U5_MIN_SIGMAS),
+                             U5_MIN_SIGMAS, U5_MAX_WRONG),
               message_margin(s_hi, sk.lv0, want_hi, m, "add8_pbs high nibble",
-                             U5_MIN_SIGMAS))
-    check(len(wrong) == 0, "an add8_pbs sum is not (a + b) mod 256")
+                             U5_MIN_SIGMAS, U5_MAX_WRONG))
+    check(np.log2(std_in) <= U5_PBS3_STD_LOG2_MAX,
+          f"add8_pbs third PBS input std 2^{np.log2(std_in):.2f} above the "
+          f"2^{U5_PBS3_STD_LOG2_MAX} ceiling")
+    check(len(wrong) <= U5_MAX_WRONG,
+          f"{len(wrong)} add8_pbs sums are not (a + b) mod 256, more than "
+          f"the profile's {U5_MAX_WRONG}")
     print(f"   add8_pbs adds/s {U5_BATCH / secs:.1f}; peak memory {peak} B",
           flush=True)
     out["add8_pbs"] = {"batch_s": secs, "adds_per_s": U5_BATCH / secs,
+                       "wrong_sums": len(wrong),
                        "margin_sigmas": sig, "peak_bytes": peak,
                        "launches": launches,
                        "pbs3_input_margin_sigmas": sig_in}
@@ -1747,6 +1860,213 @@ def examples_phase() -> dict:
     return out
 
 
+def plain_witness(kind: str, args: tuple, out: torch.Tensor) -> dict:
+    """What a measuring core's call of ``kind`` (see entry_runs) needs to be
+    held against the plain path after its run: its profile, the outputs'
+    wrong count, the kernel words of the first ENTRY_PLAIN_CHECK outputs
+    and of as many wrong ones, the plain path on them (a closure), and for
+    a PBS core the noise tool's block of the whole batch.  None for the centered extended profiles,
+    which phases 8-10 hold to the plain path."""
+    ck, sk = args[0], args[1]
+    p = ck.params
+    if p.message_modulus > 2 and p.centered_decomposition:
+        return None
+    fig = {"profile": p.name}
+    if kind == "nand":
+        _, _, ct_a, ct_b, bits_a, bits_b = args
+        got = cipher.lwe_decrypt_bool(out, sk.lv0)
+        want = ~(bits_a & bits_b)
+
+        def plain(i):
+            return engine.bootstrap(
+                ck, engine.prepare_nand(ct_a[i], ct_b[i]), plain=True)
+    elif kind == "many":
+        _, _, ct, want, m, mlut, theta = args
+        got = cipher.lwe_decrypt_message(out, m, sk.lv0)
+        fig["theta"] = theta
+
+        def plain(i):
+            return engine.bootstrap_many(ck, ct[i], mlut, k=1, theta=theta,
+                                         plain=True)[0]
+    else:
+        check(kind in ("identity", "plus_one"), f"unknown core kind {kind}")
+        _, _, ct, msgs, table = args
+        m = p.message_modulus
+        want = msgs if kind == "identity" else (msgs + 1) % m
+        got = cipher.lwe_decrypt_message(out, m, sk.lv0)
+        fig["noise"] = benchmarking.load_script(
+            "tools/torch_noise_margin_pbs.py").pbs_noise(out, sk.lv0, want, m)
+
+        def plain(i):
+            return engine.bootstrap(ck, ct[i], testvec=table, plain=True)
+    wrong = np.flatnonzero(got.cpu().numpy() != want)
+    idx = torch.from_numpy(np.union1d(
+        np.arange(min(ENTRY_PLAIN_CHECK, len(want))),
+        wrong[:ENTRY_PLAIN_CHECK])).to(out.device)
+    fig.update(wrong=len(wrong), checked=len(idx),
+               checked_wrong=min(len(wrong), ENTRY_PLAIN_CHECK),
+               words=out[idx].clone(), plain=lambda: plain(idx))
+    return fig
+
+
+@contextlib.contextmanager
+def witnessed(module: str, name: str, kind: str, calls: list):
+    """``module.name``, a measuring core of ``kind`` returning (record,
+    outputs, ...), replaced for the run by a spy that appends
+    plain_witness's record of each call to ``calls``."""
+    mod = sys.modules[module]
+    real = getattr(mod, name)
+
+    def spy(*args):
+        res = real(*args)
+        call = plain_witness(kind, args, res[1])
+        if call is not None:
+            calls.append(call)
+        return res
+    setattr(mod, name, spy)
+    try:
+        yield
+    finally:
+        setattr(mod, name, real)
+
+
+def run_entry_point(path: str, argv: list, core) -> tuple:
+    """The script's ``main(argv)`` on the card, its standard output kept:
+    (exit code, its JSON records, the witnessed core calls, seconds,
+    launches, peak memory).  The engine's routing flags are restored
+    afterwards and must be as they were."""
+    mod = benchmarking.load_script(path)
+    if core is not None:
+        benchmarking.load_script(f"tools/{core[0]}.py"
+                                 if core[0].startswith("torch_")
+                                 else f"{core[0]}.py")
+    flags = (engine.PREFER_BLOCK_ROTATION, engine.PREFER_PIPE,
+             blindrotate.FUSED_STEP)
+    calls, log = [], io.StringIO()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    scope = (witnessed(*core, calls) if core
+             else contextlib.nullcontext())
+    try:
+        with scope, contextlib.redirect_stdout(log):
+            rc, secs, launches = timed_run(path, lambda: mod.main(argv))
+    finally:
+        now = (engine.PREFER_BLOCK_ROTATION, engine.PREFER_PIPE,
+               blindrotate.FUSED_STEP)
+        (engine.PREFER_BLOCK_ROTATION, engine.PREFER_PIPE,
+         blindrotate.FUSED_STEP) = flags
+        print(log.getvalue(), end="", flush=True)
+    check(now == flags, f"{path} {argv} left the routing flags at {now}")
+    records = [json.loads(line) for line in log.getvalue().splitlines()
+               if line.startswith("{")]
+    return (rc, records, calls, secs, launches,
+            torch.cuda.max_memory_allocated())
+
+
+def entry_points_phase(seed: int, dev, card: dict) -> dict:
+    """Phase 21: each measuring entry point's ``main`` in-process at full
+    profiles (ENTRY_RUNS: its exit code, its JSON records each naming the
+    card, its exact launches), then every witnessed core call's outputs
+    (ENTRY_PLAIN_CHECK, and as many of its wrong ones) against the plain
+    path, word for word: the new configurations 80bit_fast and
+    110bit_fast (>= 8 sigma), uint6 floor (the noise tool), theta 0/1/2,
+    floor uint6/7/8 (accuracy beside the noise tool's predicted rate; no
+    0-wrong guard: they miss by design) and, through the noise tool's
+    core, 128bit_fast with kernel_limb_drop 0 (K2 at lo 0) on keys made
+    from ``seed``."""
+    out = {}
+    records = {}
+    for label, path, argv, want_rc, want_launches, core in entry_runs():
+        if "scaling" not in path:
+            argv = [*argv, "--device", dev.type]
+        rc, recs, calls, secs, launches, peak = run_entry_point(
+            path, argv, core)
+        check(rc == want_rc, f"{path} {argv} returned {rc}, not {want_rc}")
+        check(recs, f"{path} {argv} printed no JSON record")
+        for rec in recs:
+            check(rec["device"] == card,
+                  f"{path}: device {rec['device']}, not {card}")
+        check_counts(launches, want_launches, 1)
+        t1 = time.perf_counter()
+        for call in calls:
+            check(torch.equal(call.pop("plain")(), call.pop("words")),
+                  f"{label} {call['profile']}: the kernel path disagrees "
+                  "with the plain path")
+        check(cuda_t.launch_counts == launches,
+              "the plain path launched a kernel")
+        if calls:
+            done(t1, f"{sum(c['checked'] for c in calls)} outputs of "
+                 f"{len(calls)} core calls bit-equal through the plain "
+                 "path; ")
+        records[label] = recs
+        out[label] = {"argv": argv, "rc": rc, "seconds": secs,
+                      "peak_bytes": peak, "launches": launches,
+                      "witnessed": calls}
+        print(f"   {label}: rc {rc}, {secs:.3f} s, peak memory {peak} B",
+              flush=True)
+
+    by = {lab: {r.get("metric", r.get("profile")): r for r in recs}
+          for lab, recs in records.items() if lab != "bench_micro"}
+    for label in ("bench", "bench_exact", "bench_block", "bench_pipe"):
+        rec = records[label][0]
+        check(rec["value"] is not None
+              and rec["noise"]["margin_sigmas"] >= MIN_SIGMAS,
+              f"{label}: {rec}")
+    guard = records["bench_selftest_guard"][0]
+    check(guard["value"] is None and "error" in guard,
+          f"--selftest-guard: {guard}")
+    for rec in records["bench_profiles"]:
+        check(rec["value"] is not None, f"bench_profiles: {rec}")
+    for rec in records["noise_margin"]:
+        check(rec["wrong_answers"] == 0
+              and rec["margin_sigmas"] >= MIN_SIGMAS, f"noise_margin: {rec}")
+    for rec in records["noise_margin_pbs"]:
+        check(not rec["profile"].endswith("_centered")
+              or rec["wrong_answers"] == 0, f"noise_margin_pbs: {rec}")
+    for rec in records["noise_many"]:
+        check(rec["theta"] == 2 or rec["wrong_answers"] == 0,
+              f"noise_many: {rec}")
+    for label in ("bench_ext_uint6", "bench_ext_uint7", "bench_ext_uint8"):
+        for rec in records[label]:
+            if rec["metric"].endswith("centered_accuracy"):
+                check(rec["value"] == 1.0, f"{label}: {rec}")
+        for call in out[label]["witnessed"]:
+            noise = call["noise"]
+            acc = by[label][f"pbs_{call['profile']}_accuracy"]["value"]
+            print(f"   {call['profile']}: accuracy {acc:.4f}, the noise "
+                  f"tool's predicted {1 - noise['est_error_per_pbs']:.4f} "
+                  f"(std 2^{noise['phase_std_log2']}, "
+                  f"{noise['margin_sigmas']} sigma)", flush=True)
+
+    # 128bit_fast with kernel_limb_drop 0: the bands keep all four key
+    # limbs and K2 runs at lo 0 end to end.  On the same keys (the same
+    # seed) it must give 128bit_fast's words: the keys lie on the 2^8
+    # grid, so the limb that 128bit_fast drops is zero.
+    p0 = dataclasses.replace(params.P128_FAST, name="128bit_fast_drop0",
+                             kernel_limb_drop=0)
+    nm = benchmarking.load_script("tools/torch_noise_margin.py")
+    calls, recs = [], []
+    with witnessed("torch_noise_margin", "measure", "nand", calls):
+        for p in (p0, params.P128_FAST):
+            rec, secs, launches = timed_run(
+                p.name, lambda: nm.measure_profile(p, 512, dev, seed=seed)[0])
+            check_counts(launches, dict.fromkeys(K1K2, p.lwe_n), 1)
+            check(rec["wrong_answers"] == 0
+                  and rec["margin_sigmas"] >= MIN_SIGMAS, f"{p.name}: {rec}")
+            print(f"   {json.dumps(rec)}", flush=True)
+            recs.append(rec)
+    check(torch.equal(calls[0].pop("plain")(), calls[0]["words"]),
+          f"{p0.name}: the kernel path disagrees with the plain path")
+    check(torch.equal(calls[0].pop("words"), calls[1].pop("words"))
+          and {**recs[0], "profile": ""} == {**recs[1], "profile": ""},
+          f"{p0.name}: other words or noise than {params.P128_FAST.name}'s "
+          "on the same keys")
+    calls[1].pop("plain")
+    out["noise_margin_drop0"] = {"seconds": secs, "launches": launches,
+                                 "records": recs, "witnessed": calls}
+    return {"runs": out, "records": records}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1773,6 +2093,7 @@ def main() -> int:
         timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
     print(f"card: {smi.stdout.strip().splitlines()[0]}", flush=True)
+    card = benchmarking.device_info(dev)
     print(f"   torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} "
           f"device(s)", flush=True)
@@ -2003,6 +2324,14 @@ def main() -> int:
                               blk.pop("run"), times["extprod_t"][0])
     portable["phase_s"] = done(t0)
 
+    t0 = phase("21. the measuring entry points through their main: "
+               "bench_torch (4 ways + --selftest-guard), the bench and noise "
+               "tools, bench_micro_torch, bench_scaling_torch; "
+               "128bit_fast drop 0")
+    torch.cuda.empty_cache()
+    entry = entry_points_phase(args.seed + 3, dev, card)
+    entry_s = done(t0)
+
     runs = {"nand": launches, "and_or": and_or_launches,
             "uint6_centered": u6["launches"],
             "uint7_centered": u7["launches"],
@@ -2021,7 +2350,9 @@ def main() -> int:
             **{f"example_{name}": fig["launches"]
                for name, fig in ex.items()},
             **{f"exact_{label}": fig["launches"]
-               for label, fig in exact.items() if label in ROUTES}}
+               for label, fig in exact.items() if label in ROUTES},
+            **{f"entry_{label}": fig["launches"]
+               for label, fig in entry["runs"].items()}}
     u6p, u8p = params.UINT6_CENTERED, params.UINT8_CENTERED
     # name: (source, TPU kernel, the timed shape: profile, batch, rows)
     kernels = {
@@ -2100,6 +2431,10 @@ def main() -> int:
     for key, (name, *shape) in shape_bounds.items():
         shape_times[key]["bound_ms"], shape_times[key]["bound_by"] = (
             kernel_bound(name, *shape))
+    print(json.dumps({"entry_points": {
+        "phase_s": entry_s, "records": entry["records"],
+        "runs": {label: {k: v for k, v in fig.items() if k != "launches"}
+                 for label, fig in entry["runs"].items()}}}), flush=True)
     print(json.dumps({
         "kernels": entries,
         "keygen_s": keygen_s, "first_batch_s": first_s,

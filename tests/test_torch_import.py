@@ -38,24 +38,37 @@ def test_package_imports_without_jax():
     assert res.stdout.strip() == "ok"
 
 
+# The port's measuring entry points: the counterparts of the JAX repo's
+# bench.py, bench_micro.py, bench_scaling.py, its tools and
+# tests/test_noise_margin.py.
+ENTRY_SCRIPTS = ["bench_torch.py", "bench_micro_torch.py",
+                 "bench_scaling_torch.py", "tools/torch_bench_profiles.py",
+                 "tools/torch_bench_ext.py", "tools/torch_noise_margin.py",
+                 "tools/torch_noise_margin_pbs.py",
+                 "tools/torch_noise_many.py",
+                 "tests/test_torch_noise_margin.py"]
+
+
 def test_mesh_utils_and_examples_import_without_jax():
-    """parallel/, experimental/, every module of utils/ and the five
-    examples/torch_*.py programs import with JAX blocked, and load nothing
-    of it or of the JAX package."""
+    """parallel/, experimental/, every module of utils/, the five
+    examples/torch_*.py programs and the nine measuring entry points
+    (:data:`ENTRY_SCRIPTS`) import with JAX blocked, print nothing at
+    import, and load nothing of JAX or of the JAX package."""
     res = _run_without_jax("""
         import glob, importlib.util
         import go_tfhe_tpu_torch.experimental.nussbaumer
         import go_tfhe_tpu_torch.parallel.mesh
-        from go_tfhe_tpu_torch.utils import metrics, profiling, rng, torus
+        from go_tfhe_tpu_torch.utils import (benchmarking, metrics,
+                                             profiling, rng, torus)
         paths = sorted(glob.glob("examples/torch_*.py"))
         assert len(paths) == 5, paths
-        for path in paths:
+        for path in paths + %r:
             spec = importlib.util.spec_from_file_location("ex", path)
             spec.loader.exec_module(importlib.util.module_from_spec(spec))
         assert not any(m == "jax" or m.startswith(("jax.", "go_tfhe_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok")
-    """)
+    """ % (ENTRY_SCRIPTS,))
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
 
@@ -65,13 +78,15 @@ def _port_sources():
     files = glob.glob(os.path.join(ROOT, "go_tfhe_tpu_torch", "**", "*.py"),
                       recursive=True)
     files += glob.glob(os.path.join(ROOT, "examples", "torch_*.py"))
-    return sorted(os.path.relpath(f, ROOT) for f in files) + ["chip_smoke.py"]
+    return (sorted(os.path.relpath(f, ROOT) for f in files)
+            + ["chip_smoke.py"] + ENTRY_SCRIPTS)
 
 
 @pytest.mark.parametrize("path", _port_sources())
 def test_no_jax_import_in_source(path):
-    """No line of the port, its examples or chip_smoke.py imports JAX or
-    the JAX package (as opposed to go_tfhe_tpu_torch)."""
+    """No line of the port, its examples, chip_smoke.py or the measuring
+    entry points imports JAX or the JAX package (as opposed to
+    go_tfhe_tpu_torch)."""
     import re
     pattern = re.compile(r"^\s*(import|from)\s+(jax|go_tfhe_tpu)\b")
     with open(os.path.join(ROOT, path)) as f:

@@ -156,6 +156,20 @@ def test_kernel_bound_of_perf_table(chip_smoke, row):
     assert round(ms, 4) == written
 
 
+def test_uint5_guard_bound_from_the_draws(chip_smoke):
+    """Phase 14's bound on add8_pbs's wrong sums is the smallest W with
+    P(Binomial(U5_BATCH, p) > W) < 1e-6, p the one-sided upper 95%
+    (Clopper-Pearson) limit of the rate over the card's 16 draws."""
+    stats = pytest.importorskip("scipy.stats")
+    draws = chip_smoke.U5_DRAW_WRONG
+    k, n = sum(draws), len(draws) * chip_smoke.U5_BATCH
+    p = stats.beta.ppf(0.95, k + 1, n - k)
+    bound = next(w for w in range(chip_smoke.U5_BATCH)
+                 if stats.binom.sf(w, chip_smoke.U5_BATCH, p) < 1e-6)
+    assert (len(draws), k) == (16, 29)
+    assert bound == chip_smoke.U5_MAX_WRONG
+
+
 def test_trace_writes_a_chrome_trace(tmp_path):
     """trace() on the CPU writes one Chrome trace into log_dir, naming
     the ops run inside the scope."""

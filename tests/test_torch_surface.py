@@ -4,6 +4,11 @@ starting with ``_``; imports and re-exports aside) has a counterpart in
 the port module that takes its place, under its own name or the name
 :data:`RENAMES` gives, or stands in :data:`NOT_PORTED` with its reason.
 Both packages are parsed with ``ast``; neither is imported.
+
+The second map does the same for the JAX repo's scripts outside the
+package (the ``*.py`` at the repo's root and the scripts under
+``tools/``): each has a port script in :data:`SCRIPTS` or a reason in
+:data:`NOT_PORTED_SCRIPTS`.
 """
 
 import ast
@@ -133,3 +138,85 @@ def test_mapping_entries_are_live():
         assert why.strip()
         assert any(fnmatch.fnmatch(m, mod) and fnmatch.fnmatch(n, pat)
                    for m, n in defined), (mod, pat)
+
+
+# ---------------------------------------------------------------------------
+# The JAX repo's entry points outside the package: every script at the
+# repo's root and under tools/ has a port counterpart or a reason.
+# ---------------------------------------------------------------------------
+
+# JAX script -> the port's counterpart (imports torch, numpy and the port).
+SCRIPTS = {
+    "bench.py": "bench_torch.py",
+    "bench_micro.py": "bench_micro_torch.py",
+    "bench_scaling.py": "bench_scaling_torch.py",
+    "tools/bench_profiles.py": "tools/torch_bench_profiles.py",
+    "tools/bench_ext.py": "tools/torch_bench_ext.py",
+    "tools/noise_margin.py": "tools/torch_noise_margin.py",
+    "tools/noise_margin_pbs.py": "tools/torch_noise_margin_pbs.py",
+    "tools/noise_many.py": "tools/torch_noise_many.py",
+}
+
+# The port's scripts that are no JAX script's counterpart.
+PORT_ONLY_SCRIPTS = ("chip_smoke.py", "rotdec_times.py")
+
+# JAX script pattern -> why the port has no counterpart.
+NOT_PORTED_SCRIPTS = {
+    "tools/split_timing.py":
+        "times the TPU step's kernels in jitted 700-step loops; "
+        "rotdec_times.py and chip_smoke.py's phase 3 time the port's",
+    "tools/security_estimate.py":
+        "imports nothing of either package and runs as it is",
+    "__graft_entry__.py":
+        "the JAX package's compile check; chip_smoke.py is the port's",
+    "tools/collect_artifacts.sh":
+        "collects the JAX scripts' artifacts on the TPU host; "
+        "chip_smoke.py's phase 21 runs the port's entry points",
+    "tools/warm_cache.py":
+        "fills XLA's persistent compilation cache; PyTorch has none",
+    "tools/probe_*.py": "a TPU probe of a Pallas kernel's layout",
+    "tools/sweep_*.py": "a sweep of a Pallas kernel's TPU tiles",
+    "tools/proto_t_step.py":
+        "the TPU prototype of the transposed step, now ops/pallas_t.py "
+        "(ported as csrc/rotdec_t.cu and csrc/extprod_t.cu)",
+    "tools/_exp_gadget*.py":
+        "a noise experiment on the JAX package that chose the "
+        "128bit_fast gadget; tests/test_torch_noise_margin.py and "
+        "tools/torch_noise_margin.py measure the port's margins",
+}
+
+
+def _jax_scripts():
+    port = set(SCRIPTS.values()) | set(PORT_ONLY_SCRIPTS)
+    paths = glob.glob(os.path.join(ROOT, "*.py"))
+    paths += glob.glob(os.path.join(ROOT, "tools", "*.py"))
+    paths += glob.glob(os.path.join(ROOT, "tools", "*.sh"))
+    rel = (os.path.relpath(p, ROOT).replace(os.sep, "/") for p in paths)
+    return sorted(p for p in rel if p not in port)
+
+
+@pytest.mark.parametrize("script", _jax_scripts())
+def test_every_jax_script_has_a_counterpart(script):
+    if script in SCRIPTS:
+        assert os.path.exists(os.path.join(ROOT, SCRIPTS[script])), (
+            f"{script}: no port script {SCRIPTS[script]}")
+        return
+    assert any(fnmatch.fnmatch(script, pat) for pat in NOT_PORTED_SCRIPTS), (
+        f"{script}: neither a port counterpart in SCRIPTS nor a reason in "
+        "NOT_PORTED_SCRIPTS")
+
+
+def test_script_map_entries_are_live():
+    """Every script map entry names a file of the repo, every reason is
+    given, and no JAX script is both ported and not ported."""
+    scripts = _jax_scripts()
+    for jax_script, port_script in SCRIPTS.items():
+        assert os.path.exists(os.path.join(ROOT, jax_script)), jax_script
+        assert os.path.exists(os.path.join(ROOT, port_script)), port_script
+    for name in PORT_ONLY_SCRIPTS:
+        assert os.path.exists(os.path.join(ROOT, name)), name
+    for pat, why in NOT_PORTED_SCRIPTS.items():
+        assert why.strip()
+        hits = [s for s in scripts if fnmatch.fnmatch(s, pat)]
+        assert hits, pat
+        assert not set(hits) & set(SCRIPTS), pat
