@@ -130,7 +130,7 @@ from go_tfhe_tpu_torch.ops import (_build, blindrotate, cuda_ext, cuda_ext_t,
                                    cuda_step, cuda_t, decompose, extprod,
                                    polymul)
 from go_tfhe_tpu_torch.ops.blindrotate import block_bands
-from go_tfhe_tpu_torch.utils import benchmarking, profiling
+from go_tfhe_tpu_torch.utils import benchmarking, profiling, tracing
 from go_tfhe_tpu_torch.utils.torus import f64_to_torus, wrap_i32
 from rotdec_times import graph_ms
 
@@ -332,15 +332,16 @@ def cold_ms(fn, reps: int) -> float:
 
 def profile_batch(label: str, fn) -> None:
     """With --profile: one more call of fn (a warm batch of a path) under
-    torch.profiler; prints the wall time, the kernel time by name (self
-    device time of the CUDA kernel events) and the device's idle share,
+    torch.profiler, with the program's recorder on (its spans in the
+    trace); prints the wall time, the kernel time by name (self device
+    time of the CUDA kernel events) and the device's idle share,
     1 - kernel time / wall."""
     if not PROFILE:
         return
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with tracing.enabled(), profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -348,10 +349,12 @@ def profile_batch(label: str, fn) -> None:
     by_name = {}
     for e in prof.key_averages():
         us = e.self_device_time_total
-        # kernels only: CPU ops repeat their kernels' time, and "Command
-        # Buffer Full" is the host waiting on a full queue
+        # kernels only: CPU ops repeat their kernels' time, "Command
+        # Buffer Full" is the host waiting on a full queue, and the
+        # recorder's spans are annotations over kernels
         if (us > 0 and e.device_type == torch.autograd.DeviceType.CUDA
-                and e.key != "Command Buffer Full"):
+                and e.key != "Command Buffer Full"
+                and not getattr(e, "is_user_annotation", False)):
             ms, n = by_name.get(e.key, (0.0, 0))
             by_name[e.key] = (ms + us / 1e3, n + e.count)
     kernel_ms = sum(ms for ms, _ in by_name.values())

@@ -70,6 +70,7 @@ from .ops.cuda_pipe import blind_rotate_pipe
 from .ops.keyswitch import identity_key_switch
 from .ops.sample_extract import sample_extract
 from .utils.torus import f64_to_torus, i32
+from .utils.tracing import count, span
 
 # Affine-preparation bias constants (evaluator/gates_helper.go, gates/gates.go).
 _T_EIGHTH = i32(int(f64_to_torus(0.125)))
@@ -144,15 +145,22 @@ def _bootstrap(ck: CloudKey, ct: torch.Tensor, testvec, key_switch: bool,
     if tv.dim() > len(tv_shape):
         tv = tv.reshape((-1,) + tv_shape)
     route = route or _route(ck)
-    if route in _PORTABLE:
-        rotated = _PORTABLE[route](p, prepare_bootstrap_kernels(ck.bsk, p),
-                                   ct2, tv)
-    else:
-        rotated = _ROTATIONS[route](p, ck.bands, ct2, tv, plain=plain)
-    if k > 1:                               # big-poly coefficient 0
-        rotated = rotated[:, 0]
-    lv1 = sample_extract(rotated, 0)
-    out = identity_key_switch(p, ck.ksk, lv1) if key_switch else lv1
+    dev = ct.device
+    with span("engine.bootstrap", dev, route=route, batch=ct2.shape[0],
+              key_switch=key_switch):
+        with span("engine.rotation", dev):
+            if route in _PORTABLE:
+                rotated = _PORTABLE[route](
+                    p, prepare_bootstrap_kernels(ck.bsk, p), ct2, tv)
+            else:
+                rotated = _ROTATIONS[route](p, ck.bands, ct2, tv,
+                                            plain=plain)
+            count("rotation.steps", p.lwe_n)
+        if k > 1:                           # big-poly coefficient 0
+            rotated = rotated[:, 0]
+        with span("engine.sample_extract", dev):
+            lv1 = sample_extract(rotated, 0)
+        out = identity_key_switch(p, ck.ksk, lv1) if key_switch else lv1
     return out.reshape(lead + out.shape[-1:])
 
 
@@ -208,16 +216,22 @@ def bootstrap_many(ck: CloudKey, ct: torch.Tensor, multi_lut: torch.Tensor,
     lead = ct.shape[:-1]
     ct2 = ct.reshape(-1, ct.shape[-1])
     tv = multi_lut.reshape(-1, 2, p.n) if multi_lut.dim() > 2 else multi_lut
-    if route == "blind_rotate":
-        rotated = blind_rotate(p, prepare_bootstrap_kernels(ck.bsk, p), ct2,
-                               tv, theta=theta)
-    elif route == "blind_rotate_t":
-        rotated = blind_rotate_t(p, ck.bands, ct2, tv, theta=theta,
-                                 plain=plain)
-    else:
+    if route not in ("blind_rotate", "blind_rotate_t"):
         raise ValueError(f"bootstrap_many: no route {route!r}")
-    lv1 = torch.stack([sample_extract(rotated, t) for t in range(k)])
-    out = identity_key_switch(p, ck.ksk, lv1) if key_switch else lv1
+    dev = ct.device
+    with span("engine.bootstrap", dev, route=route, batch=ct2.shape[0],
+              key_switch=key_switch):
+        with span("engine.rotation", dev):
+            if route == "blind_rotate":
+                rotated = blind_rotate(p, prepare_bootstrap_kernels(ck.bsk, p),
+                                       ct2, tv, theta=theta)
+            else:
+                rotated = blind_rotate_t(p, ck.bands, ct2, tv, theta=theta,
+                                         plain=plain)
+            count("rotation.steps", p.lwe_n)
+        with span("engine.sample_extract", dev):
+            lv1 = torch.stack([sample_extract(rotated, t) for t in range(k)])
+        out = identity_key_switch(p, ck.ksk, lv1) if key_switch else lv1
     return out.reshape((k,) + lead + out.shape[-1:])
 
 

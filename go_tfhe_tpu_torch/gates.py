@@ -17,47 +17,73 @@ from .keys import CloudKey
 from .ops.keyswitch import identity_key_switch
 from .params import TFHEParams
 from .utils.torus import TORUS, f64_to_torus, from_numpy_u32, i32, to_numpy_u32
+from .utils.tracing import span
 
 
+def _entry(gate):
+    """The gate inside the span ``entry.gate`` (utils/tracing.py), with
+    the gate's name and batch, on the device of its last ciphertext."""
+    name = gate.__name__
+
+    @functools.wraps(gate)
+    def traced(*args, **kwargs):
+        ct = next(x for x in reversed((*args, *kwargs.values()))
+                  if isinstance(x, torch.Tensor))
+        with span("entry.gate", ct.device, gate=name,
+                  batch=ct.numel() // ct.shape[-1]):
+            return gate(*args, **kwargs)
+    return traced
+
+
+@_entry
 def NAND(ck: CloudKey, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return engine.bootstrap(ck, engine.prepare_nand(a, b))
 
 
+@_entry
 def AND(ck: CloudKey, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return engine.bootstrap(ck, engine.prepare_and(a, b))
 
 
+@_entry
 def OR(ck: CloudKey, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return engine.bootstrap(ck, engine.prepare_or(a, b))
 
 
+@_entry
 def XOR(ck: CloudKey, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return engine.bootstrap(ck, engine.prepare_xor(a, b))
 
 
+@_entry
 def XNOR(ck: CloudKey, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return engine.bootstrap(ck, engine.prepare_xnor(a, b))
 
 
+@_entry
 def NOR(ck: CloudKey, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return engine.bootstrap(ck, engine.prepare_nor(a, b))
 
 
+@_entry
 def ANDNY(ck: CloudKey, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """NOT(a) AND b."""
     return engine.bootstrap(ck, engine.prepare_andny(a, b))
 
 
+@_entry
 def ANDYN(ck: CloudKey, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a AND NOT(b)."""
     return engine.bootstrap(ck, engine.prepare_andyn(a, b))
 
 
+@_entry
 def ORNY(ck: CloudKey, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """NOT(a) OR b."""
     return engine.bootstrap(ck, engine.prepare_orny(a, b))
 
 
+@_entry
 def ORYN(ck: CloudKey, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a OR NOT(b)."""
     return engine.bootstrap(ck, engine.prepare_oryn(a, b))
@@ -79,6 +105,7 @@ def and_or_lut(p: TFHEParams, device) -> torch.Tensor:
     return from_numpy_u32(_and_or_table(p), device)
 
 
+@_entry
 def AND_OR(ck: CloudKey, a: torch.Tensor, b: torch.Tensor
            ) -> tuple[torch.Tensor, torch.Tensor]:
     """(a AND b, a OR b) from ONE bootstrap via multi-LUT extraction
@@ -94,6 +121,7 @@ def AND_OR(ck: CloudKey, a: torch.Tensor, b: torch.Tensor
     return out[0], out[1]
 
 
+@_entry
 def NOT(a: torch.Tensor) -> torch.Tensor:
     """Negation, no bootstrap (gates/gates.go:117-119)."""
     return -a
@@ -104,6 +132,7 @@ def COPY(a: torch.Tensor) -> torch.Tensor:
     return a.clone()
 
 
+@_entry
 def MUX(ck: CloudKey, sel: torch.Tensor, then_ct: torch.Tensor,
         else_ct: torch.Tensor) -> torch.Tensor:
     """sel ? then : else in two bootstraps and one key switch

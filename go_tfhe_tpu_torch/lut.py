@@ -27,6 +27,7 @@ from . import engine
 from .keys import CloudKey
 from .params import TFHEParams
 from .utils.torus import f64_to_torus, from_numpy_u32, torus_to_f64
+from .utils.tracing import span
 
 
 def _div_round(a: int, b: int) -> int:
@@ -186,7 +187,8 @@ def bootstrap_lut(ck: CloudKey, ct: torch.Tensor, lut: torch.Tensor
                   ) -> torch.Tensor:
     """PBS with a precomputed table (evaluator/programmable_bootstrap.go:
     50-115).  lut: (2, N) / (k, 2, N) shared, or one per ciphertext."""
-    return engine.bootstrap(ck, ct, testvec=lut)
+    with span("entry.lut", ct.device, batch=ct.numel() // ct.shape[-1]):
+        return engine.bootstrap(ck, ct, testvec=lut)
 
 
 def bootstrap_func(ck: CloudKey, ct: torch.Tensor, f: Callable[[int], int],
@@ -194,5 +196,8 @@ def bootstrap_func(ck: CloudKey, ct: torch.Tensor, f: Callable[[int], int],
     """PBS evaluating f on the message space
     (evaluator/programmable_bootstrap.go:16-30); the table is built on the
     ciphertexts' device."""
-    gen = Generator(ck.params, message_modulus, device=ct.device)
-    return bootstrap_lut(ck, ct, gen.gen_lut(f))
+    with span("entry.lut", ct.device, batch=ct.numel() // ct.shape[-1]):
+        with span("lut.table", ct.device):
+            table = Generator(ck.params, message_modulus,
+                              device=ct.device).gen_lut(f)
+        return engine.bootstrap(ck, ct, testvec=table)

@@ -24,6 +24,8 @@ import time
 
 import torch
 
+from ..utils import tracing
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
@@ -140,10 +142,15 @@ def load_library() -> ctypes.CDLL:
     64-bit addresses are never cut)."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build()["path"])
+        t0 = time.perf_counter()
+        built = build()
+        lib = ctypes.CDLL(built["path"])
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         _lib = lib
+        # first-run records (utils/tracing.py): the load, and nvcc's share
+        tracing.note_first_run("library.load", time.perf_counter() - t0)
+        tracing.note_first_run("library.nvcc", built["seconds"])
     return _lib

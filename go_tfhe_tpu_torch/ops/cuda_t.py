@@ -29,12 +29,14 @@ the fused step K3 (ops/cuda_step.py) and the pipelined step K9
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple
 
 import torch
 
 # band_limb_drop is the profile's rule; the wrappers' callers take it here.
 from ..params import TFHEParams, band_limb_drop  # noqa: F401
+from ..utils import tracing
 from ..utils.torus import TORUS
 from . import _build
 from .decompose import gadget_decompose
@@ -74,14 +76,27 @@ def launch(name: str, entry: str, device: torch.device, *args) -> None:
     current device, and so do the entry points' cudaFuncSetAttribute
     calls, so ``device`` is made current for the call and its own current
     stream is passed: a tensor on ``cuda:1`` launches on card 1 whichever
-    card the caller has current."""
+    card the caller has current.
+
+    The launch's first on each card records its host seconds, and while
+    the recorder is on the counter ``launch.host_ns`` adds the launch's
+    (utils/tracing.py)."""
+    t0 = time.perf_counter_ns() if tracing.active else 0
     lib = _build.load_library()
+    key = (entry, device.index)
+    first = key not in tracing.first_launches
+    if first:
+        t_first = time.perf_counter()
     with torch.cuda.device(device):
         rc = getattr(lib, entry)(
             *args, torch.cuda.current_stream(device).cuda_stream)
     if rc:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     launch_counts[name] += 1
+    if first:
+        tracing.first_launches[key] = time.perf_counter() - t_first
+    if t0:
+        tracing.count("launch.host_ns", time.perf_counter_ns() - t0)
 
 
 def pack_bsk_band_t(bsk: torch.Tensor, lo: int = 0) -> torch.Tensor:

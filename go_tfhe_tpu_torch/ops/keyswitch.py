@@ -27,6 +27,7 @@ import torch
 
 from ..params import TFHEParams
 from ..utils.torus import TORUS, i32
+from ..utils.tracing import note_peak, span
 from .polymul import exact_f32_matmul, split_balanced_limbs_i8
 
 _KS_LIMBS = 4
@@ -59,23 +60,30 @@ def digit_table_switch(table: torch.Tensor, ct: torch.Tensor, basebit: int,
     rows = n * t * base
     lead = ct.shape[:-1]
     flat = ct.reshape(-1, n + 1)
-    limbs = split_balanced_limbs_i8(table.reshape(rows, w), _KS_LIMBS)
-    table_f = torch.cat([limbs[i] for i in range(_KS_LIMBS)],
-                        dim=-1).to(torch.float32)  # (rows, 4w)
+    with span("key_switch.limb_form", ct.device):
+        limbs = split_balanced_limbs_i8(table.reshape(rows, w), _KS_LIMBS)
+        table_f = torch.cat([limbs[i] for i in range(_KS_LIMBS)],
+                            dim=-1).to(torch.float32)  # (rows, 4w)
     ar = torch.arange(base, device=ct.device, dtype=TORUS)
-    outs = []
-    for s in range(0, flat.shape[0], _CHUNK):
-        part = flat[s:s + _CHUNK]
-        digits = _digits(part[:, :n], basebit, t)  # (b, n, t)
-        onehot = (digits[..., None] == ar).to(torch.float32)
-        with exact_f32_matmul():
-            acc = (onehot.reshape(-1, rows) @ table_f).to(TORUS)
-        tot = acc[:, :w]
-        for i in range(1, _KS_LIMBS):
-            tot = tot + (acc[:, i * w:(i + 1) * w] << (8 * i))
-        out = -tot
-        out[:, w - 1] += part[:, n]
-        outs.append(out)
+    outs, transient = [], 0
+    with span("key_switch.contract", ct.device):
+        for s in range(0, flat.shape[0], _CHUNK):
+            part = flat[s:s + _CHUNK]
+            digits = _digits(part[:, :n], basebit, t)  # (b, n, t)
+            onehot = (digits[..., None] == ar).to(torch.float32)
+            with exact_f32_matmul():
+                acc = (onehot.reshape(-1, rows) @ table_f).to(TORUS)
+            # the product's float32 output had acc's bytes
+            transient = max(transient, sum(
+                x.numel() * x.element_size()
+                for x in (limbs, table_f, digits, onehot, acc)))
+            tot = acc[:, :w]
+            for i in range(1, _KS_LIMBS):
+                tot = tot + (acc[:, i * w:(i + 1) * w] << (8 * i))
+            out = -tot
+            out[:, w - 1] += part[:, n]
+            outs.append(out)
+    note_peak("key_switch.transient_bytes", transient)
     return torch.cat(outs, dim=0).reshape(lead + (w,))
 
 
@@ -84,4 +92,5 @@ def identity_key_switch(p: TFHEParams, ksk: torch.Tensor,
     """ksk: (N, t, base, n_lwe+1) int32 words;  ct_lv1: (..., N+1).
 
     Returns (..., n_lwe+1) level-0 ciphertexts."""
-    return digit_table_switch(ksk, ct_lv1, p.basebit, p.iks_t)
+    with span("key_switch", ct_lv1.device):
+        return digit_table_switch(ksk, ct_lv1, p.basebit, p.iks_t)

@@ -33,6 +33,7 @@ from .ops.polymul import exact_f32_matmul, split_balanced_limbs_i8
 from .params import TFHEParams
 from .utils.rng import gaussian_torus
 from .utils.torus import TORUS, from_numpy_u32, to_numpy_u32
+from .utils.tracing import span
 
 
 @dataclasses.dataclass
@@ -149,7 +150,8 @@ def gen_reencryption_key_asymmetric(
 def reencrypt(rk: ProxyReencryptionKey, ct: torch.Tensor) -> torch.Tensor:
     """Transform ciphertext(s) (..., lwe_n+1) to the target key
     (proxyreenc.go:321-366).  Multi-hop chains are repeated application."""
-    return keyswitch.digit_table_switch(rk.table, ct, rk.basebit, rk.t)
+    with span("reencrypt", ct.device):
+        return keyswitch.digit_table_switch(rk.table, ct, rk.basebit, rk.t)
 
 
 # ---------------------------------------------------------------------------

@@ -26,7 +26,8 @@ uint6_centered (k 2) counts as uint5 (k 1) does.  Where the port differs
 * ``bsk_bytes`` is the size of the port's resident bands, (lwe_n, 2, 2L,
   2N) int32 (``keys.CloudKey.bands``), not of the Pallas band layout, and
   :func:`key_memory_usage` reports the port's CloudKey fields;
-* :func:`trace` is a ``torch.profiler`` scope.
+* :func:`trace` is a ``torch.profiler`` scope, with the program's
+  recorder (``utils/tracing.py``) on.
 
 ``chip_smoke.py``'s per-kernel bounds read :func:`limb_pairs` and
 :data:`H100_PEAKS` from here.
@@ -42,6 +43,7 @@ from typing import Dict, Iterator
 import torch
 
 from ..params import TFHEParams, band_limb_drop
+from . import tracing
 
 # Dense peaks of one NVIDIA H100 SXM5 at its 700 W limit (NVIDIA's data
 # sheet): bf16 tensor-core TFLOP/s, int8 tensor-core TOP/s, HBM3 GB/s.  A
@@ -144,7 +146,9 @@ def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
     present, its CUDA activity; on exit (after a synchronize) it writes a
     Chrome trace, ``<host>_<pid>.<time>.pt.trace.json``, into ``log_dir``
     (viewable in Perfetto or TensorBoard).  Yields the profiler, whose
-    ``key_averages()`` sum the events by name."""
+    ``key_averages()`` sum the events by name.  The program's recorder
+    (:mod:`.tracing`) is on for the scope, so the trace carries its
+    spans."""
     from torch.profiler import (ProfilerActivity, profile,
                                 tensorboard_trace_handler)
     cuda = torch.cuda.is_available()
@@ -152,8 +156,9 @@ def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
     if cuda:
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities,
-                 on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
+    with tracing.enabled(), profile(
+            activities=activities,
+            on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
         try:
             yield prof
         finally:

@@ -40,18 +40,19 @@ def test_package_imports_without_jax():
 
 # The port's measuring entry points: the counterparts of the JAX repo's
 # bench.py, bench_micro.py, bench_scaling.py, its tools and
-# tests/test_noise_margin.py.
+# tests/test_noise_margin.py, and the program-trace tool.
 ENTRY_SCRIPTS = ["bench_torch.py", "bench_micro_torch.py",
                  "bench_scaling_torch.py", "tools/torch_bench_profiles.py",
                  "tools/torch_bench_ext.py", "tools/torch_noise_margin.py",
                  "tools/torch_noise_margin_pbs.py",
                  "tools/torch_noise_many.py",
-                 "tests/test_torch_noise_margin.py"]
+                 "tests/test_torch_noise_margin.py",
+                 "tools/torch_program_trace.py"]
 
 
 def test_mesh_utils_and_examples_import_without_jax():
     """parallel/, experimental/, every module of utils/, the five
-    examples/torch_*.py programs and the nine measuring entry points
+    examples/torch_*.py programs and the measuring entry points
     (:data:`ENTRY_SCRIPTS`) import with JAX blocked, print nothing at
     import, and load nothing of JAX or of the JAX package."""
     res = _run_without_jax("""
@@ -59,7 +60,8 @@ def test_mesh_utils_and_examples_import_without_jax():
         import go_tfhe_tpu_torch.experimental.nussbaumer
         import go_tfhe_tpu_torch.parallel.mesh
         from go_tfhe_tpu_torch.utils import (benchmarking, metrics,
-                                             profiling, rng, torus)
+                                             profiling, rng, torus,
+                                             tracing)
         paths = sorted(glob.glob("examples/torch_*.py"))
         assert len(paths) == 5, paths
         for path in paths + %r:
