@@ -199,11 +199,15 @@ NUSS_BATCH = 64
 # H100 SXM dense FP64 tensor-core peak (NVIDIA's data sheet), the floor of
 # the portable step's three float64 products.
 FP64_TFLOPS = 67.0
+# H100 SXM INT32 multiply-adds a second: 132 SMs x 64 lanes a clock at the
+# 1.98 GHz boost, the floor of K2's small form (exact u32 products).
+INT32_TMACS = 132 * 64 * 1.98e9 / 1e12
 MESH_COPIES = 4
 # The five example programs (examples/torch_*.py) at the full profiles
 # their docstrings name for a real run, and the K1 and K2 launches of each:
 # 8 gate bootstraps (6 gates and MUX's 2) x 700 steps; 7 PBS x 1071; 3 PBS
 # x 1071 + 40 gate bootstraps x 700; 8 many-LUT bootstraps x 700; none.
+# Their batches (4, or uint5's 32 messages) all take K2's small form.
 # Phase 21, the measuring entry points: each run's (label, script, argv,
 # exit code, the kernel launches of the whole run as {kernel: count}, the
 # measuring core whose calls are held against the plain path as (module,
@@ -214,7 +218,8 @@ MESH_COPIES = 4
 # 5 timed ones; torch_bench_ext a first batch and 2 timed ones a profile
 # (its portable batches launch nothing); bench_micro_torch 5 + 2 x 4 + 4
 # gate bootstraps (first batch and timed loop, latency at batch 1 and
-# 128, the 128bit_fast rows) and 3 + 1 uint5 PBS; bench_scaling_torch a
+# 128, the 128bit_fast rows; the 4 at batch 1 take K2's small form) and
+# 3 + 1 uint5 PBS; bench_scaling_torch a
 # warm and 3 timed batches; --selftest-guard stops after its first batch.
 ENTRY_PORTABLE_BATCH = 16
 ENTRY_PLAIN_CHECK = 4
@@ -266,7 +271,8 @@ def entry_runs() -> tuple:
          _launches(K6K8, 6 * _n("uint8")),
          ("torch_bench_ext", "accuracy", "plus_one")),
         ("bench_micro", "bench_micro_torch.py", [], 0,
-         _launches(K1K2, 17 * exact + 4 * _n("uint5")), None),
+         _launches(K1K2, 17 * exact + 4 * _n("uint5"),
+                   extprod_t_small=4 * exact), None),
         ("bench_scaling", "bench_scaling_torch.py", [], 0,
          _launches(K1K2, 4 * exact), None),
     )
@@ -405,7 +411,9 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
 
 def check_counts(launches: dict, per_call: dict, calls: int) -> None:
     """Each kernel launched per_call[name] times per bootstrap call, every
-    other kernel not at all."""
+    other kernel not at all; ``extprod_t_small``, the K2 launches of the
+    small-batch form (a part of ``extprod_t``'s), likewise: a phase at a
+    batch of at most ``cuda_t.SMALL_BATCH_MAX`` names it."""
     for name, count in launches.items():
         want = per_call.get(name, 0) * calls
         check(count == want,
@@ -419,7 +427,8 @@ def kernel_bound(name: str, p, b: int, rows: int = 0) -> tuple:
     once, each output written once) over the H100's HBM3 rate, and its
     int8 tensor-core operations (2 per multiply-add of the cost model's
     ``profiling.limb_pairs``) over the dense int8 peak, both from
-    ``profiling.H100_PEAKS``."""
+    ``profiling.H100_PEAKS``; for K2's small form its u32 multiply-adds
+    over the INT32 lanes' rate (INT32_TMACS)."""
     peak = profiling.H100_PEAKS["h100"]
     n, l2, nd, k = p.n, 2 * p.l, p.digit_limbs, p.poly_extend_factor
     rows = rows or l2
@@ -433,6 +442,12 @@ def kernel_bound(name: str, p, b: int, rows: int = 0) -> tuple:
     elif name in ("extprod_t", "extprod_ext_t", "extprod"):
         nbytes = k * nd * rows * n * b + band + 2 * acc
         macs = 2 * k * n * b * rows * n
+    elif name == "extprod_t_small":       # u32 multiply-adds on the lanes
+        nbytes = nd * rows * n * b + band + 2 * acc
+        t_macs = 2 * n * b * rows * n / (INT32_TMACS * 1e12) * 1e3
+        t_bytes = nbytes / (peak["hbm_gbps"] * 1e9) * 1e3
+        return (t_macs, "operations") if t_macs > t_bytes else (t_bytes,
+                                                                "bytes")
     elif name == "fused_rotate_step":
         nbytes = 2 * acc + b * 4 + band
         macs = 2 * n * b * rows * n
@@ -473,8 +488,11 @@ def kernels_against_plain(gen, dev, shape_times):
     2048, all 9 limb pairs), ragged batches (B 1, 3, 15, 16, 17, 127, 129,
     2049, 4095; K1's tiles hold 16) with amounts 0, N and 2N among them,
     and, for K2, extreme operands (every digit limb and every key limb
-    -128, lo 0 and 1).  K1 is timed in a CUDA graph at 128bit_fast B 4096,
-    and in ``shape_times`` there in an eager loop and with its input
+    -128, lo 0 and 1, at B 1 and 256).  K2 takes its small form exactly
+    at B <= SMALL_BATCH_MAX (128bit and uint5 B 1, uint5 B 32 among them),
+    counted apart as ``extprod_t_small`` and timed in a CUDA graph at
+    B 1 (128bit_fast, 128bit, uint5).  K1 is timed in a CUDA graph at
+    128bit_fast B 4096, and in ``shape_times`` there in an eager loop and with its input
     evicted from L2, and at 128bit B 4096, uint4 B 2048 and uint5 B 2048;
     K2 and its library form also at uint5 B 2048.  Returns ({kernel: max_abs_err}, {kernel: (ms, plain_ms)}, {kernel:
     library_ms})."""
@@ -486,7 +504,8 @@ def kernels_against_plain(gen, dev, shape_times):
     cases = [(fast, BATCH), (exact, BATCH), (wide, 256), (u4, 2048),
              (u5, U5_BATCH), (fast, 1), (fast, 3), (fast, 15), (fast, 16),
              (fast, 17), (fast, 127), (fast, 129), (u4, 2049),
-             (fast, BATCH - 1)]
+             (fast, BATCH - 1), (exact, 1), (u5, 1),
+             (u5, cuda_t.SMALL_BATCH_MAX)]
     errs = dict.fromkeys(cuda_t.launch_counts, 0)
     times, lib = {}, {}
     for p, b in cases:
@@ -506,16 +525,29 @@ def kernels_against_plain(gen, dev, shape_times):
 
         d_k = cuda_t.rotate_decompose_t(p, acc, amounts)
         d_p = cuda_t.rotate_decompose_t_ref(p, acc, amounts)
-        o_k = cuda_t.extprod_t(d_p, band, acc, nd, lo)
+        k2, o_k = k2_form(lambda: cuda_t.extprod_t(d_p, band, acc, nd, lo),
+                          b, f"{p.name} B={b}")
         o_p = cuda_t.extprod_t_ref(d_p, band, acc, nd, lo)
         torch.cuda.synchronize()
         e1, e2 = max_abs_err(d_k, d_p), max_abs_err(o_k, o_p)
-        print(f"   {p.name:12s} B={b:5d}  K1 max|err| {e1}  K2 max|err| {e2}",
-              flush=True)
+        print(f"   {p.name:12s} B={b:5d}  K1 max|err| {e1}  K2 ({k2}) "
+              f"max|err| {e2}", flush=True)
         check(e1 == 0 and e2 == 0,
               f"kernel disagrees with its plain version at {p.name} B={b}")
         errs["rotate_decompose_t"] = max(errs["rotate_decompose_t"], e1)
-        errs["extprod_t"] = max(errs["extprod_t"], e2)
+        errs[k2] = max(errs[k2], e2)
+        if k2 == "extprod_t_small" and b == 1:    # a chain's K2
+            ms = graph_ms(lambda: cuda_t.extprod_t(d_p, band, acc, nd, lo),
+                          100)
+            plain_ms = cuda_ms(lambda: cuda_t.extprod_t_ref(
+                d_p, band, acc, nd, lo), 3)
+            print(f"   {k2}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+                  f"per call ({p.name}, B=1, graph)", flush=True)
+            if p is exact:
+                times[k2] = (ms, plain_ms)
+            else:
+                shape_times[f"{k2} {p.name} B=1"] = {
+                    "ms": ms, "plain_ms": plain_ms, "library_ms": None}
         k1 = lambda: cuda_t.rotate_decompose_t(p, acc, amounts)
         k1_plain_ms = lambda: cuda_ms(
             lambda: cuda_t.rotate_decompose_t_ref(p, acc, amounts), 3)
@@ -555,27 +587,44 @@ def kernels_against_plain(gen, dev, shape_times):
                 "library_ms": library_time(lambda: cuda_t.extprod_t_mm(
                     d_p, band, acc, nd, lo), o_p, f"extprod_t {p.name}")}
     for p in (exact, fast):        # lo 0 and 1
-        e2 = extreme_case(dev, p, 256, 1)
-        errs["extprod_t"] = max(errs["extprod_t"], e2)
-    for name, (ms, plain_ms) in times.items():
+        for b in (1, 256):         # the small form and the tile
+            k2, e2 = extreme_case(dev, p, b, 1)
+            errs[k2] = max(errs[k2], e2)
+    for name in K1K2:
+        ms, plain_ms = times[name]
         print(f"   {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
               f"per call (128bit_fast, B={BATCH})", flush=True)
     return errs, times, lib
 
 
-def extreme_case(dev, p, b: int, k: int) -> int:
+def k2_form(fn, b: int, what: str) -> tuple:
+    """(the form's counter name, fn()'s output) of one K2 call fn: the
+    small form's launches also count under ``extprod_t_small``, and it
+    must be taken exactly at B <= SMALL_BATCH_MAX."""
+    before = cuda_t.launch_counts["extprod_t_small"]
+    out = fn()
+    small = cuda_t.launch_counts["extprod_t_small"] > before
+    check(small == (b <= cuda_t.SMALL_BATCH_MAX),
+          f"K2 at {what} took the {'small form' if small else 'tile'}")
+    return ("extprod_t_small" if small else "extprod_t"), out
+
+
+def extreme_case(dev, p, b: int, k: int) -> tuple:
     """K2 (k = 1) or K5 with every digit limb -128 and every balanced key
     limb -128 (band word 0x7F7F7F80; 0x7F7F8000 with limb 0 dropped): the
-    tile's largest s32 sums, against the plain version.  Returns max|err|."""
+    tile's largest s32 sums, and the small form's u32 products, against
+    the plain version.  Returns (the kernel's counter name, max|err|)."""
     nd, lo = p.digit_limbs, cuda_t.band_limb_drop(p)
     band = extreme_band(dev, 2 * p.l, p.n, lo)
     digits = torch.full((k * nd * 2 * p.l * p.n, b), -128, dtype=torch.int8,
                         device=dev)
     acc = torch.zeros((2, k * p.n, b), dtype=torch.int32, device=dev)
     if k == 1:
-        o_k = cuda_t.extprod_t(digits, band, acc, nd, lo)
+        name, o_k = k2_form(lambda: cuda_t.extprod_t(digits, band, acc, nd,
+                                                     lo), b, p.name)
         o_p = cuda_t.extprod_t_ref(digits, band, acc, nd, lo)
     else:
+        name = "extprod_ext_t"
         o_k = cuda_ext_t.extprod_ext_t(digits, band, acc, k, nd, lo)
         o_p = cuda_ext_t.extprod_ext_t_ref(digits, band, acc, k, nd, lo)
     err = max_abs_err(o_k, o_p)
@@ -583,7 +632,7 @@ def extreme_case(dev, p, b: int, k: int) -> int:
           f"K{2 if k == 1 else 5} max|err| {err}", flush=True)
     check(err == 0, f"K{2 if k == 1 else 5} disagrees with its plain version "
           f"on extreme operands at {p.name}")
-    return err
+    return name, err
 
 
 def ext_kernels_against_plain(gen, dev, errs, times, lib, shape_times):
@@ -656,7 +705,7 @@ def ext_kernels_against_plain(gen, dev, errs, times, lib, shape_times):
             shape_times[f"rotate_decompose_ext_t {p.name} B={b}"] = {
                 "ms": graph_ms(k4, 20), "plain_ms": k4_plain_ms(),
                 "library_ms": None}
-    e5 = extreme_case(dev, u6, 256, u6.poly_extend_factor)
+    _, e5 = extreme_case(dev, u6, 256, u6.poly_extend_factor)
     errs["extprod_ext_t"] = max(errs["extprod_ext_t"], e5)
     for name in K4K5:
         ms, plain_ms = times[name]
@@ -1857,7 +1906,8 @@ def examples_phase() -> dict:
         if rc:
             print("\n".join(lines), flush=True)
         check(rc == 0, f"{name} {' '.join(argv)} returned {rc}")
-        check_counts(launches, dict.fromkeys(K1K2, steps), 1)
+        check_counts(launches, _launches(K1K2, steps,
+                                         extprod_t_small=steps), 1)
         print(f"   {name}: {lines[-1]}", flush=True)
         out[name] = {"argv": argv, "seconds": secs, "launches": launches}
     return out
@@ -2160,7 +2210,9 @@ def main() -> int:
     launches = dict(cuda_t.launch_counts)
     print(f"   launches over {calls} bootstrap calls: {launches}",
           flush=True)
-    check_counts(launches, dict.fromkeys(K1K2, p.lwe_n), calls)
+    # the one-gate batch's K2 launches take the small form
+    check_counts(launches, _launches(K1K2, p.lwe_n * calls,
+                                     extprod_t_small=p.lwe_n), 1)
 
     check(out.shape == (BATCH, p.lwe_n + 1) and out.dtype == torch.int32,
           f"unexpected output {tuple(out.shape)} {out.dtype}")
@@ -2362,6 +2414,8 @@ def main() -> int:
         "rotate_decompose_t": ("rotdec_t.cu", "pallas_t.py:122",
                                (p, BATCH, 0)),
         "extprod_t": ("extprod_t.cu", "pallas_t.py:210", (p, BATCH, 0)),
+        "extprod_t_small": ("extprod_t_small.cu", "pallas_t.py:210",
+                            (params.P128, 1, 0)),
         "fused_rotate_step": ("step.cu", "pallas_step.py:140",
                               (p, BATCH, 0)),
         "rotate_decompose_ext_t": ("rotdec_ext_t.cu", "pallas_t.py:348",
@@ -2397,6 +2451,10 @@ def main() -> int:
                         "rotate_decompose_t", U5, U5_BATCH, 0),
                     f"extprod_t {U5.name} B={U5_BATCH}": (
                         "extprod_t", U5, U5_BATCH, 0),
+                    f"extprod_t_small {p.name} B=1": (
+                        "extprod_t_small", p, 1, 0),
+                    f"extprod_t_small {U5.name} B=1": (
+                        "extprod_t_small", U5, 1, 0),
                     f"rotate_decompose_ext_t {params.UINT6_CENTERED.name} "
                     f"B={UINT6_BATCH}, eager loop": (
                         "rotate_decompose_ext_t", params.UINT6_CENTERED,

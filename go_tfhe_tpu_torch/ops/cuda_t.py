@@ -11,7 +11,9 @@ Each kernel has a wrapper and a plain PyTorch version beside it:
 
 * K1 :func:`rotate_decompose_t` / :func:`rotate_decompose_t_ref` —
   ``csrc/rotdec_t.cu``;
-* K2 :func:`extprod_t` / :func:`extprod_t_ref` — ``csrc/extprod_t.cu``.
+* K2 :func:`extprod_t` / :func:`extprod_t_ref` — ``csrc/extprod_t.cu``,
+  and at small batches ``csrc/extprod_t_small.cu``
+  (:func:`takes_small_form`).
 
 :func:`extprod_t_mm` computes K2's function through ``torch._int_mm`` (the
 library form, a yardstick of speed for the card); no path of the port calls
@@ -47,6 +49,12 @@ from .rotate import monomial_mul
 
 # extprod_tile.cuh's output tile: N must be a multiple of its TN.
 _EXTPROD_TN = 64
+# The largest batch that K2 runs in its small form (:func:`takes_small_form`):
+# on an H100 (PERF.md, K2's crossover) the small form is the faster up to
+# B 32 and the tile from B 64, at the 128-bit shapes (N 1024, 2L 6, ND 1;
+# 89 against 138 µs a step at B 32) and at uint5's (N 2048, 2L 2, ND 3; 158
+# against 172 µs).
+SMALL_BATCH_MAX = 32
 # The H100's dynamic shared memory per block (opt-in limit), and the widths
 # of a rotate + decompose tile (csrc/rotdec_col.cuh).
 SMEM_LIMIT = 232448
@@ -56,10 +64,14 @@ _TILE_WIDTHS = (4, 8, 16, 32)
 ROW_SMEM_LIMIT = 49152
 _ROW_THREADS = 256
 
+# Launches by wrapper name.  One key is a sub-count, no kernel of its own:
+# "extprod_t_small" counts the "extprod_t" launches that took K2's
+# small-batch form, so a total of launches leaves it out.
 launch_counts = {"rotate_decompose_t": 0, "extprod_t": 0,
                  "rotate_decompose_ext_t": 0, "extprod_ext_t": 0,
                  "rotate_decompose_ext": 0, "rotate_decompose": 0,
-                 "extprod": 0, "fused_rotate_step": 0, "pipe_step": 0}
+                 "extprod": 0, "fused_rotate_step": 0, "pipe_step": 0,
+                 "extprod_t_small": 0}
 
 
 def reset_launch_counts() -> None:
@@ -255,19 +267,61 @@ def extprod_t(digits: torch.Tensor, band: torch.Tensor, acc: torch.Tensor,
               nd: int = 1, lo: int = 0) -> torch.Tensor:
     """K2 (replaces pallas_t.extprod_t): see the ref's contract; ``lo``
     must be the band's (:func:`band_limb_drop`).  Returns a new (2, N, B)
-    tensor; ``acc`` is not modified."""
+    tensor; ``acc`` is not modified.  Launches the small-batch form where
+    :func:`takes_small_form` says so for the batch and the form's block
+    fits the shapes (:func:`small_form_fits`), else the tensor-core tile;
+    both give the same words."""
     if acc.device.type == "cpu":
         return extprod_t_ref(digits, band, acc, nd, lo)
+    return _extprod_t_launch(digits, band, acc, nd, lo)
+
+
+def _extprod_t_launch(digits: torch.Tensor, band: torch.Tensor,
+                      acc: torch.Tensor, nd: int, lo: int,
+                      small: bool | None = None) -> torch.Tensor:
+    """One K2 launch on CUDA tensors: of the form the shapes choose, or of
+    the one ``small`` names (timing both forms at one batch, to place the
+    crossover, names them)."""
     _, n, b = acc.shape
     l2 = band.shape[1]
     check_tile("extprod_t", n, l2, lo)
     _check("acc", acc, TORUS, (2, n, b), acc.device)
     _check("band", band, TORUS, (2, l2, 2 * n), acc.device)
     _check("digits", digits, torch.int8, (nd * l2 * n, b), acc.device)
+    if small is None:
+        small = takes_small_form(b) and small_form_fits(acc.device, n, b,
+                                                        l2, nd)
     out = torch.empty_like(acc)
-    launch("extprod_t", "tfhe_extprod_t", acc.device, digits.data_ptr(),
+    entry = "tfhe_extprod_t_small" if small else "tfhe_extprod_t"
+    launch("extprod_t", entry, acc.device, digits.data_ptr(),
            band.data_ptr(), acc.data_ptr(), out.data_ptr(), n, b, l2, nd, lo)
+    if small:
+        launch_counts["extprod_t_small"] += 1
     return out
+
+
+def takes_small_form(b: int) -> bool:
+    """Whether a K2 call of batch ``b`` takes the small form: at most
+    :data:`SMALL_BATCH_MAX` ciphertexts.  N, 2L and ND do not enter: the
+    crossover measured the same at the 128-bit and uint5 shapes."""
+    return b <= SMALL_BATCH_MAX
+
+
+# (card index, N, B, 2L, ND) -> whether the small form's block fits.
+_small_fits: dict = {}
+
+
+def small_form_fits(device: torch.device, n: int, b: int, l2: int,
+                    nd: int) -> bool:
+    """Whether K2's small form takes these shapes on ``device``'s card:
+    the kernel's own rule (``tfhe_extprod_t_small_fits``: its block's
+    shared memory within the card's), asked once for each shape."""
+    key = (device.index, n, b, l2, nd)
+    if key not in _small_fits:
+        with torch.cuda.device(device):
+            _small_fits[key] = bool(
+                _build.load_library().tfhe_extprod_t_small_fits(n, b, l2, nd))
+    return _small_fits[key]
 
 
 def check_tile(name: str, n: int, rows: int, lo: int) -> None:

@@ -47,7 +47,8 @@ ENTRY_SCRIPTS = ["bench_torch.py", "bench_micro_torch.py",
                  "tools/torch_noise_margin_pbs.py",
                  "tools/torch_noise_many.py",
                  "tests/test_torch_noise_margin.py",
-                 "tools/torch_program_trace.py"]
+                 "tools/torch_program_trace.py",
+                 "tools/torch_k2_crossover.py"]
 
 
 def test_mesh_utils_and_examples_import_without_jax():
@@ -109,7 +110,8 @@ def test_kernel_module_imports_without_nvcc():
                                         "rotate_decompose": 0,
                                         "extprod": 0,
                                         "fused_rotate_step": 0,
-                                        "pipe_step": 0}
+                                        "pipe_step": 0,
+                                        "extprod_t_small": 0}
         assert _build._lib is None
         assert not any(m == "jax" or m.startswith(("jax.", "go_tfhe_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)

@@ -11,6 +11,7 @@ so the ``gpu`` cases also run where JAX is not installed:
         tests/test_torch_kernels_t.py
 """
 
+import contextlib
 import dataclasses
 import types
 
@@ -21,8 +22,9 @@ torch = pytest.importorskip("torch")
 
 from go_tfhe_tpu_torch import cipher, gates, keys  # noqa: E402
 from go_tfhe_tpu_torch import params as tparams  # noqa: E402
-from go_tfhe_tpu_torch.ops import cuda_t  # noqa: E402
+from go_tfhe_tpu_torch.ops import _build, cuda_t  # noqa: E402
 from go_tfhe_tpu_torch.ops.blindrotate import blind_rotate_t  # noqa: E402
+from go_tfhe_tpu_torch.utils import tracing  # noqa: E402
 from go_tfhe_tpu_torch.utils.torus import from_numpy_u32, to_numpy_u32  # noqa: E402
 
 _BASE = dict(lwe_n=8, lwe_alpha=1.0 / (1 << 24), n=256,
@@ -39,6 +41,10 @@ CONFIGS = {
     "bg18_l1_nd3": tparams.TFHEParams(name="t_bg18", bgbit=18, l=1,
                                       message_modulus=8, **_BASE),
 }
+
+
+# (N, 2L, ND) of K2 at the profiles on the benchmark's path.
+PROFILE_SHAPES = {"128bit": (1024, 6, 1), "uint5": (2048, 2, 3)}
 
 
 @pytest.fixture(scope="module")
@@ -152,6 +158,108 @@ def test_cpu_wrappers_run_plain_and_count_nothing():
     assert cuda_t.launch_counts == dict.fromkeys(cuda_t.launch_counts, 0)
 
 
+def test_cpu_wrapper_at_batch_one_runs_plain_and_counts_nothing():
+    """B 1, which takes K2's small form on a card, runs the plain version
+    on the CPU and counts no launch of either form."""
+    p = CONFIGS["bg18_l1_nd3"]
+    acc, amounts, bsk = _inputs(p, 1, 9)
+    acc_t, am_t = from_numpy_u32(acc, "cpu"), torch.from_numpy(amounts)
+    band = cuda_t.pack_bsk_band_t(from_numpy_u32(bsk, "cpu"))[0]
+    nd = p.digit_limbs
+    assert cuda_t.takes_small_form(1)
+    cuda_t.reset_launch_counts()
+    d = cuda_t.rotate_decompose_t(p, acc_t, am_t)
+    out = cuda_t.extprod_t(d, band, acc_t, nd)
+    np.testing.assert_array_equal(
+        out.numpy(), cuda_t.extprod_t_ref(d, band, acc_t, nd).numpy())
+    assert cuda_t.launch_counts == dict.fromkeys(cuda_t.launch_counts, 0)
+
+
+@pytest.mark.parametrize("profile", sorted(PROFILE_SHAPES))
+def test_small_form_is_chosen_from_the_shapes(profile):
+    """The profile's K2 calls take the small form up to
+    ``SMALL_BATCH_MAX`` ciphertexts and the tile above it, whatever their
+    N, 2L and ND."""
+    n, l2, nd = PROFILE_SHAPES[profile]
+    p = tparams.get_params(profile)
+    assert (p.n, 2 * p.l, p.digit_limbs) == (n, l2, nd)
+    top = cuda_t.SMALL_BATCH_MAX
+    for b in (1, 2, 3, top):
+        assert cuda_t.takes_small_form(b), b
+    for b in (top + 1, 2048, 4096):
+        assert not cuda_t.takes_small_form(b), b
+
+
+class _StandInLib:
+    """The kernel library's entries on the CPU: each call is recorded and
+    returns 0 (no error); ``tfhe_extprod_t_small_fits`` answers ``fits``."""
+
+    def __init__(self, fits):
+        self.calls, self.fits = [], fits
+
+    def __getattr__(self, name):
+        if name == "tfhe_extprod_t_small_fits":
+            return lambda *args: self.calls.append((name, args)) or self.fits
+        return lambda *args: self.calls.append((name, args[4:9])) or 0
+
+
+def _k2_on_stand_in(monkeypatch, lib, batches, shapes=(1024, 6, 1)):
+    """K2's wrapper at ``batches`` as on a card, launching into ``lib``."""
+    monkeypatch.setattr(_build, "load_library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(cuda_t, "_check", lambda *args: None)
+    monkeypatch.setattr(cuda_t, "_small_fits", {})
+    monkeypatch.setattr(tracing, "first_launches", {})
+    for name in ("extprod_t", "extprod_t_small"):
+        monkeypatch.setitem(cuda_t.launch_counts, name, 0)
+    n, l2, nd = shapes
+    for b in batches:
+        acc = torch.empty((2, n, b), dtype=torch.int32, device="meta")
+        band = torch.empty((2, l2, 2 * n), dtype=torch.int32, device="meta")
+        digits = torch.empty((nd * l2 * n, b), dtype=torch.int8,
+                             device="meta")
+        cuda_t.extprod_t(digits, band, acc, nd)
+
+
+def test_k2_launches_the_form_its_shapes_choose(monkeypatch):
+    """The wrapper on a card (a stand-in library here): the small form's
+    entry at B 1 and at ``SMALL_BATCH_MAX``, the tile's above; every launch
+    counts under ``extprod_t``, the small form's also under
+    ``extprod_t_small``; the kernel's rule is asked once a shape, and not
+    for a batch above the crossover."""
+    lib = _StandInLib(1)
+    top = cuda_t.SMALL_BATCH_MAX
+    _k2_on_stand_in(monkeypatch, lib, (1, top, 1, top + 1))
+    assert lib.calls == [
+        ("tfhe_extprod_t_small_fits", (1024, 1, 6, 1)),
+        ("tfhe_extprod_t_small", (1024, 1, 6, 1, 0)),
+        ("tfhe_extprod_t_small_fits", (1024, top, 6, 1)),
+        ("tfhe_extprod_t_small", (1024, top, 6, 1, 0)),
+        ("tfhe_extprod_t_small", (1024, 1, 6, 1, 0)),
+        ("tfhe_extprod_t", (1024, top + 1, 6, 1, 0))]
+    assert cuda_t.launch_counts["extprod_t"] == 4
+    assert cuda_t.launch_counts["extprod_t_small"] == 3
+
+
+def test_small_form_needs_a_block_that_fits(monkeypatch):
+    """Where the kernel's rule (``tfhe_extprod_t_small_fits``: its block's
+    shared memory within the card's) refuses the shapes, batches of 1 and
+    2 launch the tile, counted under ``extprod_t`` only."""
+    for n, l2, nd in PROFILE_SHAPES.values():
+        lib = _StandInLib(0)
+        _k2_on_stand_in(monkeypatch, lib, (1, 2), (n, l2, nd))
+        assert lib.calls == [
+            ("tfhe_extprod_t_small_fits", (n, 1, l2, nd)),
+            ("tfhe_extprod_t", (n, 1, l2, nd, 0)),
+            ("tfhe_extprod_t_small_fits", (n, 2, l2, nd)),
+            ("tfhe_extprod_t", (n, 2, l2, nd, 0))]
+        assert cuda_t.launch_counts["extprod_t"] == 2
+        assert cuda_t.launch_counts["extprod_t_small"] == 0
+
+
 def test_non_cpu_tensor_never_takes_the_plain_path():
     """A tensor off the CPU goes to the kernel route, which refuses what is
     not a CUDA tensor instead of falling back to the plain version."""
@@ -178,14 +286,27 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _batch(b):
+    """A batch given as "top" / "top+1": the largest batch of K2's small
+    form, and the tile's smallest."""
+    top = cuda_t.SMALL_BATCH_MAX
+    return {"top": top, "top+1": top + 1}.get(b, b)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("b", [1, 3, 8, 127, 129, 200])
+@pytest.mark.parametrize("b", [1, 3, 8, 127, 129, 200, 2, 7, "top",
+                               "top+1"])
 @pytest.mark.parametrize("cfg", sorted(CONFIGS))
 def test_kernels_match_plain_on_gpu(cuda_device, cfg, b):
     """K1 and K2 == their plain versions, ragged batches (B % 4 != 0, one
-    batch tile and a bit) included, ``lo`` passed explicitly."""
+    batch tile and a bit) included, ``lo`` passed explicitly; K2 in the
+    form the shapes choose (the small form up to ``SMALL_BATCH_MAX``, the
+    tile above), counted under ``extprod_t`` and the small form also
+    under ``extprod_t_small``."""
     p = CONFIGS[cfg]
+    b = _batch(b)
     lo, nd = cuda_t.band_limb_drop(p), p.digit_limbs
+    small = cuda_t.takes_small_form(b)
     acc, amounts, bsk = _inputs(p, b, 7)
     acc_t = from_numpy_u32(acc, cuda_device)
     am_t = torch.from_numpy(amounts).to(cuda_device)
@@ -198,6 +319,8 @@ def test_kernels_match_plain_on_gpu(cuda_device, cfg, b):
     assert cuda_t.launch_counts["rotate_decompose_t"] == \
         before["rotate_decompose_t"] + 1
     assert cuda_t.launch_counts["extprod_t"] == before["extprod_t"] + 1
+    assert cuda_t.launch_counts["extprod_t_small"] == \
+        before["extprod_t_small"] + small
     np.testing.assert_array_equal(
         d.cpu().numpy(),
         cuda_t.rotate_decompose_t_ref(p, acc_t, am_t).cpu().numpy())
@@ -207,13 +330,15 @@ def test_kernels_match_plain_on_gpu(cuda_device, cfg, b):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b", [8, 130])
+@pytest.mark.parametrize("b", [8, 130, 1, 2, 3, "top", "top+1"])
 @pytest.mark.parametrize("cfg", sorted(CONFIGS))
 def test_extprod_extreme_operands_on_gpu(cuda_device, cfg, b):
     """Every digit limb -128 and every balanced key limb -128 (the band
     word 0x7F7F7F80, or 0x7F7F8000 with limb 0 dropped): the largest s32
-    limb-pair sums of the tensor-core tile, exact."""
+    limb-pair sums of the tensor-core tile, exact; and the same operands
+    through the small form's wrapping u32 products."""
     p = CONFIGS[cfg]
+    b = _batch(b)
     lo, nd = cuda_t.band_limb_drop(p), p.digit_limbs
     word = 0x7F7F8000 if lo else 0x7F7F7F80
     band = torch.full((2, 2 * p.l, 2 * p.n), word, dtype=torch.int64,
@@ -225,6 +350,31 @@ def test_extprod_extreme_operands_on_gpu(cuda_device, cfg, b):
     np.testing.assert_array_equal(
         to_numpy_u32(out),
         to_numpy_u32(cuda_t.extprod_t_ref(digits, band, acc, nd, lo)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("profile", sorted(PROFILE_SHAPES))
+def test_small_form_at_profile_shapes_on_gpu(cuda_device, profile):
+    """At the profile's own N, 2L and ND, batch 1: K2 takes the small
+    form, which equals the plain version and the tile word for word."""
+    p = tparams.get_params(profile)
+    lo, nd = cuda_t.band_limb_drop(p), p.digit_limbs
+    acc, amounts, bsk = _inputs(p, 1, 10)
+    acc_t = from_numpy_u32(acc, cuda_device)
+    am_t = torch.from_numpy(amounts).to(cuda_device)
+    band = cuda_t.pack_bsk_band_t(from_numpy_u32(bsk, cuda_device),
+                                  lo)[0].contiguous()
+    d = cuda_t.rotate_decompose_t(p, acc_t, am_t)
+    before = dict(cuda_t.launch_counts)
+    out = cuda_t.extprod_t(d, band, acc_t, nd, lo)
+    torch.cuda.synchronize()
+    assert cuda_t.launch_counts["extprod_t"] == before["extprod_t"] + 1
+    assert cuda_t.launch_counts["extprod_t_small"] == \
+        before["extprod_t_small"] + 1
+    want = to_numpy_u32(cuda_t.extprod_t_ref(d, band, acc_t, nd, lo))
+    np.testing.assert_array_equal(to_numpy_u32(out), want)
+    tile = cuda_t._extprod_t_launch(d, band, acc_t, nd, lo, small=False)
+    np.testing.assert_array_equal(to_numpy_u32(tile), want)
 
 
 @pytest.mark.gpu

@@ -129,6 +129,8 @@ BOUND_ROWS = [
     ("pipe_step", "128bit_fast", 2048, 0, 0.0521, "operations"),
     ("pipe_step", "128bit", 2048, 0, 0.1042, "operations"),
     ("rotate_decompose_t", "128bit_fast", 2048, 0, 0.0075, "bytes"),
+    ("extprod_t_small", "128bit", 1, 0, 0.0008, "operations"),
+    ("extprod_t_small", "uint5", 1, 0, 0.0010, "operations"),
 ]
 
 

@@ -159,7 +159,8 @@ SCRIPTS = {
 
 # The port's scripts that are no JAX script's counterpart.
 PORT_ONLY_SCRIPTS = ("chip_smoke.py", "rotdec_times.py",
-                     "tools/torch_program_trace.py")
+                     "tools/torch_program_trace.py",
+                     "tools/torch_k2_crossover.py")
 
 # JAX script pattern -> why the port has no counterpart.
 NOT_PORTED_SCRIPTS = {

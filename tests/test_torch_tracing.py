@@ -5,7 +5,9 @@ clock, with the counters and the key switch's transient bytes that the
 profile's shapes give; outputs are the same words either way."""
 
 import contextlib
+import importlib.util
 import json
+import os
 import threading
 
 import pytest
@@ -366,3 +368,40 @@ def test_engine_spans_carry_the_route(fast):
         "blind_rotate_t", "blind_rotate_t", "blind_rotate"]
     assert all(s["parent"] is None for s in boots)
     assert len({s["call"] for s in boots}) == 3
+
+
+def test_small_batch_share_reads_the_k2_counters(monkeypatch):
+    """benchmark/metrics/extprod.small_batch_share.py: the share of the
+    run's K2 launches that took the small form, in percent; None where no
+    K2 launched or the program has no such counter (one without the small
+    form)."""
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "benchmark", "metrics",
+        "extprod.small_batch_share.py")
+    spec = importlib.util.spec_from_file_location("small_share", path)
+    reader = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(reader)
+    monkeypatch.setitem(cuda_t.launch_counts, "extprod_t", 700)
+    monkeypatch.setitem(cuda_t.launch_counts, "extprod_t_small", 700)
+    assert reader.read({}) == 100.0
+    monkeypatch.setitem(cuda_t.launch_counts, "extprod_t_small", 175)
+    assert reader.read({}) == 25.0
+    monkeypatch.setitem(cuda_t.launch_counts, "extprod_t_small", 0)
+    assert reader.read({}) == 0.0
+    monkeypatch.setitem(cuda_t.launch_counts, "extprod_t", 0)
+    assert reader.read({}) is None
+    monkeypatch.setitem(cuda_t.launch_counts, "extprod_t", 700)
+    monkeypatch.delitem(cuda_t.launch_counts, "extprod_t_small")
+    assert reader.read({}) is None
+
+
+def test_program_trace_counts_small_form_launches_once():
+    """tools/torch_program_trace.py's launch count (the base of
+    ``launch.host_us_per_kernel``): a K2 launch of the small form counts
+    once, under ``extprod_t``, not again under ``extprod_t_small``."""
+    from go_tfhe_tpu_torch.utils.benchmarking import load_script
+    tool = load_script("tools/torch_program_trace.py")
+    counts = dict.fromkeys(cuda_t.launch_counts, 0)
+    counts.update(rotate_decompose_t=700, extprod_t=700,
+                  extprod_t_small=700)
+    assert tool._kernel_launches(counts) == 1400
