@@ -1,7 +1,7 @@
-"""The control of the benchmark's comparison: the plain reference put in
-the program's place, computed in the nearest precision below the one the
-configurations state, and judged by the comparison that decides a run's
-``correct``.
+"""The control of the benchmark's comparison: the plain reference that the
+cell's configuration names, put in the program's place, computed in the
+nearest precision below the one the configurations state, and judged by
+the comparison that decides a run's ``correct``.
 
 The configurations state exact 32-bit torus arithmetic.  The control keeps
 24 bits of every key word (the lowest base-256 limb dropped, the step a
@@ -31,7 +31,6 @@ if ROOT not in sys.path:
 import torch  # noqa: E402
 
 from benchmark import harness  # noqa: E402
-from benchmark.reference import tfhe as ref  # noqa: E402
 
 # The key words' bits in the control: the nearest precision below the
 # configurations' 32.
@@ -45,7 +44,7 @@ def control_run(cell: harness.Cell, seed: int, calls: int, key_bits: int,
     r.make_data()
     t0 = time.time()
     dev = r.device
-    control = ref.Bootstrap(
+    control = cell.ref.Bootstrap(
         r.prm, torch.from_numpy(r.raw["bsk"].view("int32")).to(dev),
         torch.from_numpy(r.raw["ksk"].view("int32")).to(dev), key_bits)
     tv = torch.from_numpy(r.raw["testvec"].view("int32")).to(dev)

@@ -4,7 +4,8 @@ layer readings, the comparison with the plain reference, the result.
 Everything that belongs to one configuration, traffic mix or per-layer
 metric is data found by name: ``BENCHMARK.json`` at the checkout's root
 names the cell; its configuration file (``configs/<name>.json``) states the
-parameters, the program's profile of them and the plain reference; its mix
+parameters, the program's profile of them and the plain reference (its
+``reference``: a module's path, which every run is judged by); its mix
 (``traffic/<name>.json``) is read by :mod:`benchmark.traffic`; each
 per-layer metric is a reader ``metrics/<name>.py`` whose ``read(obs)``
 returns a number, or None when the run gave it nothing to read.
@@ -22,6 +23,7 @@ import importlib.util
 import json
 import math
 import os
+import re
 import sys
 import time
 
@@ -29,7 +31,6 @@ import numpy as np
 import torch
 
 from . import traffic, yardstick
-from .reference import tfhe as ref
 
 BENCH_DIR = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(BENCH_DIR)
@@ -56,6 +57,7 @@ class Cell:
     name: str
     chips: int
     config: dict          # the configuration file
+    ref: object           # the plain reference module it names
     mix: dict             # the traffic mix
     end_to_end: list      # BENCHMARK.json entries this cell reports
     per_layer: list
@@ -69,7 +71,7 @@ def _applies(metric: dict, cell: str, reported: set) -> bool:
 
 def load_cell(name: str, root: str = ROOT) -> Cell:
     """The cell ``name`` of ``root``'s BENCHMARK.json, its configuration,
-    mix and metrics."""
+    the plain reference that the configuration names, mix and metrics."""
     with open(os.path.join(root, "BENCHMARK.json")) as f:
         bench = json.load(f)
     cells = {w["name"]: w for w in bench["workloads"]}
@@ -79,23 +81,41 @@ def load_cell(name: str, root: str = ROOT) -> Cell:
     entry = {c["name"]: c for c in bench["configs"]}[cell["config"]]
     with open(os.path.join(root, entry["file"])) as f:
         config = json.load(f)
+    if "reference" not in config:
+        raise ValueError(f"{entry['file']}: the configuration names no "
+                         f"reference")
     mix = traffic.load(os.path.join(BENCH_DIR, "traffic",
                                     cell["traffic"] + ".json"))
     e2e = [m for m in bench["end_to_end"] if _applies(m, name, set())]
     reported = {m["name"] for m in e2e}
     per_layer = [m for m in bench["per_layer"]
                  if _applies(m, name, reported)]
-    return Cell(name, cell["chips"], config, mix, e2e, per_layer)
+    return Cell(name, cell["chips"], config,
+                load_reference(config["reference"], root), mix, e2e,
+                per_layer)
+
+
+def _load_module(name: str, path: str):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod          # dataclasses look their module up
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def load_reference(path: str, root: str = ROOT):
+    """The plain reference module at ``path``, relative to the checkout's
+    root (a configuration's ``reference``), loaded by path."""
+    if os.path.isabs(path) or os.path.normpath(path).startswith(".."):
+        raise ValueError(f"reference {path!r} lies outside the checkout")
+    return _load_module("benchmark_reference_" + re.sub(r"\W", "_", path),
+                        os.path.join(root, path))
 
 
 def load_reader(name: str):
     """The per-layer metric reader ``metrics/<name>.py``."""
-    path = os.path.join(BENCH_DIR, "metrics", name + ".py")
-    spec = importlib.util.spec_from_file_location(
-        "benchmark_metric_" + name.replace(".", "_"), path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    return _load_module("benchmark_metric_" + name.replace(".", "_"),
+                        os.path.join(BENCH_DIR, "metrics", name + ".py"))
 
 
 def check_profile(port_params, params: dict) -> None:
@@ -151,8 +171,10 @@ class Run:
         the raw cloud key (the program's input and the reference's)."""
         t0 = time.time()
         self.split["start_s"] = t0 - self.t_process
+        ref = self.cell.ref
         self.prm = ref.Params.from_config(self.cell.config["params"])
-        self.traffic = traffic.Traffic(self.cell.mix, self.prm, self.device)
+        self.traffic = traffic.Traffic(self.cell.mix, ref, self.prm,
+                                       self.device)
         gen = torch.Generator(device=self.device).manual_seed(self.seed)
         keys = ref.make_keys(gen, self.prm)
         self.inputs = self.traffic.make_inputs(gen, keys)
@@ -221,6 +243,7 @@ class Run:
         self.window_s = t1 - t_start
         self.calls = k
         self.latency_s, self.obs["host_return_s"] = lat, host
+        self.obs["latency_s"] = lat
         self.outs, self.digests = outs, digests
         if self.device.type == "cuda":
             self.peak_bytes = torch.cuda.max_memory_allocated(self.device)
@@ -305,7 +328,7 @@ class Run:
         outputs, against the reference's on the same inputs.  Returns
         {"attempted", "failed", "wrong_plaintexts", "reference_s"}."""
         t0 = time.time()
-        dev = self.device
+        dev, ref = self.device, self.cell.ref
         boot = ref.Bootstrap(
             self.prm, torch.from_numpy(self.raw["bsk"].view(np.int32)).to(dev),
             torch.from_numpy(self.raw["ksk"].view(np.int32)).to(dev))

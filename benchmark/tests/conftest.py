@@ -23,21 +23,30 @@ CHAIN_MIX = {"op": "gate", "gate": "NAND", "batch": 1, "loop": "closed",
 LUT_MIX = {"op": "lut", "table": [(3 * x + 1) % 8 for x in range(8)],
            "batch": 8, "loop": "closed", "chain": False,
            "distinct_batches": 2}
-MIXES = {"nand": NAND_MIX, "chain": CHAIN_MIX, "lut": LUT_MIX}
-PROFILE_OF = {"nand": "test_fast", "chain": "test_fast", "lut": "test_pbs"}
+EXT_MIX = dict(LUT_MIX, table=[(3 * x + 1) % 16 for x in range(16)])
+MIXES = {"nand": NAND_MIX, "chain": CHAIN_MIX, "lut": LUT_MIX,
+         "ext": EXT_MIX}
+PROFILE_OF = {"nand": "test_fast", "chain": "test_fast", "lut": "test_pbs",
+              "ext": "test_ext2"}
+# The plain references, relative to the checkout's root.
+TFHE = "benchmark/reference/tfhe.py"
+TFHE_EXT = "benchmark/reference/tfhe_ext.py"
 
 
 def toy_cell(profile: str, mix: dict) -> harness.Cell:
     """A cell at one of the program's registered test profiles, reporting
-    every metric of BENCHMARK.json."""
+    every metric of BENCHMARK.json; judged by ``tfhe_ext.py`` where the
+    profile's tables are extended, else by ``tfhe.py``."""
     from go_tfhe_tpu_torch import params
     p = params.get_params(profile)
     config = {"profile": profile,
+              "reference": TFHE_EXT if p.poly_extend_factor > 1 else TFHE,
               "params": {f: getattr(p, f) for f in harness.PROFILE_FIELDS}}
     with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
         bench = json.load(f)
-    return harness.Cell("toy", 1, config, dict(mix), bench["end_to_end"],
-                        bench["per_layer"])
+    return harness.Cell("toy", 1, config,
+                        harness.load_reference(config["reference"]),
+                        dict(mix), bench["end_to_end"], bench["per_layer"])
 
 
 def toy_run(kind: str, seed: int = 2 ** 33 + 5, seconds: float = 0.2,
@@ -58,6 +67,15 @@ def toy_uint(monkeypatch):
         lwe_alpha=params.UINT5.lwe_alpha, lv1_alpha=params.UINT5.lv1_alpha)
     monkeypatch.setitem(params.PROFILES, "toy_uint", p)
     return p
+
+
+@pytest.fixture
+def toy_uint8():
+    """A small extended profile with uint8's k = 9, gadget (bgbit 22, l 1)
+    and key switch (basebit 7, t 3)."""
+    from go_tfhe_tpu_torch import params
+    return dataclasses.replace(params.UINT8, name="toy_uint8", lwe_n=24,
+                               n=256, nbit=8, message_modulus=16)
 
 
 @pytest.fixture

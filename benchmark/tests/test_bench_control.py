@@ -10,7 +10,7 @@ from benchmark import control
 from conftest import MIXES, PROFILE_OF, toy_cell
 
 
-@pytest.mark.parametrize("kind", ["nand", "chain", "lut"])
+@pytest.mark.parametrize("kind", ["nand", "chain", "lut", "ext"])
 @pytest.mark.parametrize("seed", [3, 2 ** 31 + 9, 4_000_000_007])
 def test_the_control_fails_the_comparison(kind, seed):
     cell = toy_cell(PROFILE_OF[kind], MIXES[kind])
@@ -19,7 +19,7 @@ def test_the_control_fails_the_comparison(kind, seed):
     assert row["mismatched_ciphertexts"] <= row["attempted"]
 
 
-@pytest.mark.parametrize("kind", ["nand", "chain", "lut"])
+@pytest.mark.parametrize("kind", ["nand", "chain", "lut", "ext"])
 def test_the_reference_in_the_programs_place_passes(kind):
     cell = toy_cell(PROFILE_OF[kind], MIXES[kind])
     assert control.control_run(cell, 5, 6, 32, "cpu")[

@@ -40,6 +40,26 @@ def test_each_cell_loads_by_name(cell):
     assert {m["name"] for m in c.end_to_end} >= {"setup_s"}
     assert len(c.end_to_end) >= 2 and c.per_layer
     assert c.mix["batch"] >= 1 and c.config["params"]["lwe_n"] > 0
+    # judged by the reference that its configuration names
+    assert os.path.samefile(c.ref.__file__,
+                            os.path.join(ROOT, c.config["reference"]))
+
+
+def test_a_configuration_without_a_reference_is_refused(tmp_path):
+    entry = BENCH["configs"][0]
+    with open(os.path.join(ROOT, entry["file"])) as f:
+        cfg = json.load(f)
+    del cfg["reference"]
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(BENCH))
+    path = tmp_path / entry["file"]
+    path.parent.mkdir(parents=True)
+    path.write_text(json.dumps(cfg))
+    cell = next(w["name"] for w in BENCH["workloads"]
+                if w["config"] == entry["name"])
+    with pytest.raises(ValueError, match="names no reference"):
+        harness.load_cell(cell, root=str(tmp_path))
+    with pytest.raises(ValueError, match="outside the checkout"):
+        harness.load_reference("../reference/tfhe.py")
 
 
 @pytest.mark.parametrize("config", BENCH["configs"],
@@ -50,7 +70,8 @@ def test_each_configuration_is_the_programs_profile(config):
         cfg = json.load(f)
     assert cfg["source"] == config["source"]
     harness.check_profile(params.get_params(cfg["profile"]), cfg["params"])
-    ref.Params.from_config(cfg["params"])
+    harness.load_reference(cfg["reference"]).Params.from_config(
+        cfg["params"])
 
 
 def test_a_changed_number_is_refused():
@@ -65,8 +86,21 @@ def test_a_changed_number_is_refused():
 @pytest.mark.parametrize("metric", BENCH["per_layer"],
                          ids=[m["name"] for m in BENCH["per_layer"]])
 def test_each_metric_has_a_reader_that_reads_nothing_from_nothing(metric):
+    from go_tfhe_tpu_torch.utils import tracing
+    tracing.reset()                 # an earlier test's run leaves its peaks
     reader = harness.load_reader(metric["name"])
     assert reader.read({"params": {}, "batch": 1, "calls": 0}) is None
+
+
+def test_the_chains_median_is_read_from_every_call_of_the_window():
+    """``latency_p50_ms.chain`` is the nearest-rank median of the window's
+    call latencies, in ms: the number that the end-to-end metric
+    ``latency_p50_ms`` was, now read per layer."""
+    from conftest import toy_run
+    reader = harness.load_reader("latency_p50_ms.chain")
+    assert reader.read({"latency_s": [0.004, 0.001, 0.003, 0.002]}) == 2.0
+    r = toy_run("chain", trace=True)
+    assert r["correct"] and r["metrics"]["latency_p50_ms.chain"]["value"] > 0
 
 
 def test_each_mix_loads_and_unknown_keys_are_refused(tmp_path):
@@ -86,7 +120,7 @@ def _inputs(mix, seed):
                      message_modulus=2 if mix["op"] == "gate" else 8)
     gen = torch.Generator().manual_seed(seed)
     keys = ref.make_keys(gen, prm)
-    tr = traffic.Traffic(mix, prm, "cpu")
+    tr = traffic.Traffic(mix, ref, prm, "cpu")
     return keys, tr.make_inputs(gen, keys)
 
 

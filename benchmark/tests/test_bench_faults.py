@@ -9,7 +9,7 @@ from conftest import toy_run
 
 
 def test_sound_runs_are_correct():
-    for kind in ("nand", "chain", "lut"):
+    for kind in ("nand", "chain", "lut", "ext"):
         r = toy_run(kind)
         assert r["correct"] and r["failed"] == 0 and r["attempted"] > 0
         assert list(r)[-1] == "checks"
@@ -17,16 +17,21 @@ def test_sound_runs_are_correct():
                                                          "limit": 0}
 
 
-@pytest.mark.parametrize("kind", ["nand", "chain", "lut"])
+@pytest.mark.parametrize("kind", ["nand", "chain", "lut", "ext"])
 def test_a_step_that_returns_its_state_unchanged(kind, monkeypatch):
     from go_tfhe_tpu_torch.ops import blindrotate
     monkeypatch.setattr(blindrotate, "extprod_t",
+                        lambda digits, band, acc, nd, lo: acc)
+    # the extended routes' products: K5 (transposed keys), K8
+    monkeypatch.setattr(blindrotate, "extprod_ext_t",
+                        lambda digits, band, acc, k, nd, lo: acc)
+    monkeypatch.setattr(blindrotate, "extprod",
                         lambda digits, band, acc, nd, lo: acc)
     r = toy_run(kind)
     assert not r["correct"] and r["failed"] == r["attempted"]
 
 
-@pytest.mark.parametrize("kind", ["nand", "lut"])
+@pytest.mark.parametrize("kind", ["nand", "lut", "ext"])
 def test_half_of_the_batch_left_out(kind, monkeypatch):
     from go_tfhe_tpu_torch import engine
     whole = engine.bootstrap
@@ -41,7 +46,7 @@ def test_half_of_the_batch_left_out(kind, monkeypatch):
     assert not r["correct"] and 0 < r["failed"] < r["attempted"]
 
 
-@pytest.mark.parametrize("kind", ["nand", "chain", "lut"])
+@pytest.mark.parametrize("kind", ["nand", "chain", "lut", "ext"])
 def test_an_answer_altered_where_it_is_produced(kind, monkeypatch):
     from go_tfhe_tpu_torch import engine
     whole = engine.bootstrap

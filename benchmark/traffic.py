@@ -14,10 +14,11 @@ A mix file holds these keys:
   (the first from the seed), a gate's second operand the next of
   ``fresh_inputs`` ciphertexts made from the seed, in turn.
 
-Inputs are encrypted by the plain reference's code under the benchmark's
-own keys; every seed gives the same sizes, so only the values change.
-Gate operands carry the truth table: each of the four input pairs a
-quarter of a batch, in an order drawn from the seed.
+Inputs are encrypted by the code of the plain reference that the
+configuration names, under the benchmark's own keys; every seed gives the
+same sizes, so only the values change.  Gate operands carry the truth
+table: each of the four input pairs a quarter of a batch, in an order
+drawn from the seed.
 """
 
 from __future__ import annotations
@@ -26,8 +27,6 @@ import json
 import os
 
 import torch
-
-from .reference import tfhe as ref
 
 KEYS = {"op", "gate", "table", "batch", "loop", "chain",
         "distinct_batches", "fresh_inputs", "why"}
@@ -42,8 +41,6 @@ def load(path: str) -> dict:
                          f"{sorted(unknown)}")
     if mix.get("loop") != "closed":
         raise ValueError(f"{path}: only closed loops are generated")
-    if mix["op"] == "gate" and mix["gate"] not in ref.GATES:
-        raise ValueError(f"{path}: no gate {mix['gate']!r}")
     if mix["op"] not in ("gate", "lut"):
         raise ValueError(f"{path}: no op {mix['op']!r}")
     return mix
@@ -62,7 +59,8 @@ def _bits(gen: torch.Generator, batch: int) -> tuple:
 
 
 class Traffic:
-    """The inputs and calls of one mix under one configuration.
+    """The inputs and calls of one mix under one configuration, its data
+    made and judged by the plain reference module ``ref``.
 
     ``make_inputs`` draws every input before the window; ``call`` is the
     timed path; ``engine_args`` the same work as arguments of the
@@ -70,11 +68,13 @@ class Traffic:
     plain reference's input and table; ``expected`` the plaintexts that
     the outputs should decrypt to."""
 
-    def __init__(self, mix: dict, prm: ref.Params, device):
-        self.mix, self.prm, self.device = mix, prm, device
+    def __init__(self, mix: dict, ref, prm, device):
+        self.mix, self.ref, self.prm, self.device = mix, ref, prm, device
         self.batch = mix["batch"]
         self.chain = bool(mix.get("chain", False))
         self.gate = mix.get("gate")
+        if mix["op"] == "gate" and self.gate not in ref.GATES:
+            raise ValueError(f"no gate {self.gate!r}")
         if mix["op"] == "lut":
             m = prm.message_modulus
             self.table = [int(v) % m for v in mix["table"]]
@@ -88,10 +88,11 @@ class Traffic:
 
     def _encrypt(self, gen, plain, keys) -> torch.Tensor:
         if self.gate:
-            mu = ref.encode_bool(plain)
+            mu = self.ref.encode_bool(plain)
         else:
-            mu = ref.encode_message(plain, self.prm.message_modulus)
-        return ref.lwe_encrypt(gen, mu, self.prm.lwe_alpha, keys["lv0"])
+            mu = self.ref.encode_message(plain, self.prm.message_modulus)
+        return self.ref.lwe_encrypt(gen, mu, self.prm.lwe_alpha,
+                                    keys["lv0"])
 
     def _plain(self, gen, batch) -> torch.Tensor:
         return torch.randint(0, self.prm.message_modulus, (batch,),
@@ -164,18 +165,19 @@ class Traffic:
         """(input, test vector) of the plain bootstrap for ``req``;
         ``testvec``: the gates' constant test vector."""
         if self.gate:
-            return ref.gate_input(self.gate, req["a"], req["b"]), testvec
-        return req["a"], ref.lut_testvec(self.prm, self.table,
-                                         self.prm.message_modulus,
-                                         req["a"].device)
+            return (self.ref.gate_input(self.gate, req["a"], req["b"]),
+                    testvec)
+        return req["a"], self.ref.lut_testvec(self.prm, self.table,
+                                              self.prm.message_modulus,
+                                              req["a"].device)
 
     def expected(self, plain_a, plain_b=None) -> torch.Tensor:
         if self.gate:
-            return ref.TRUTH[self.gate](plain_a, plain_b)
+            return self.ref.TRUTH[self.gate](plain_a, plain_b)
         return torch.tensor(self.table, device=plain_a.device)[plain_a]
 
     def decrypt(self, out: torch.Tensor, keys: dict) -> torch.Tensor:
         if self.gate:
-            return ref.decrypt_bool(out, keys["lv0"])
-        return ref.decrypt_message(out, self.prm.message_modulus,
-                                   keys["lv0"])
+            return self.ref.decrypt_bool(out, keys["lv0"])
+        return self.ref.decrypt_message(out, self.prm.message_modulus,
+                                        keys["lv0"])
