@@ -57,6 +57,7 @@ import torch
 
 from ..params import TFHEParams
 from ..utils.torus import shr, wrap_i32
+from ..utils.tracing import count, span
 from .cuda_ext import rotate_decompose_ext, rotate_decompose_ext_ref
 from .cuda_ext_t import (extprod_ext_t, extprod_ext_t_ref,
                          rotate_decompose_ext_t, rotate_decompose_ext_t_ref)
@@ -91,12 +92,17 @@ def mod_switch_2n(x: torch.Tensor, p: TFHEParams, theta: int = 0
 
 
 def mod_switch_general(x: torch.Tensor, modulus: int) -> torch.Tensor:
-    """Torus -> [0, modulus] rounding mod switch for any modulus <= 2^17:
+    """Torus -> [0, modulus] rounding mod switch for any modulus <= 2^16:
     floor((x*M + 2^31) / 2^32), computed as the JAX package computes it in
     uint32 words (16-bit halves; every product and sum wraps mod 2^32),
-    here in int64 with explicit masks.  Returns int32."""
-    if modulus > 1 << 17:
-        raise ValueError(f"modulus {modulus} > 2^17")
+    here in int64 with explicit masks.  Returns int32.
+
+    The result keeps 16 bits, so above 2^16 it would be the value mod 2^16
+    and not mod M (the JAX package takes moduli up to 2^17 and wraps
+    there); such a modulus is refused.  The largest a profile uses is
+    uint8's 2kN = 36,864."""
+    if modulus > 1 << 16:
+        raise ValueError(f"modulus {modulus} > 2^16")
     mask = 0xFFFFFFFF
     x = x.to(torch.int64) & mask
     a_hi, a_lo = x >> 16, x & 0xFFFF
@@ -237,11 +243,13 @@ def blind_rotate_extended_t(p: TFHEParams, bands: torch.Tensor,
     lo = band_limb_drop(p)
     big = 2 * k * n
     b = ct.shape[0]
-    b_tilda = big - mod_switch_general(ct[:, n_lwe], big)           # (B,)
-    acc = monomial_mul_blocks(lut_blocks.expand(b, k, 2, n), b_tilda, k)
-    # (B, k, 2, N) -> (2, k*N, B): block r in rows [rN, (r+1)N)
-    acc = acc.permute(2, 1, 3, 0).reshape(2, k * n, b).contiguous()
-    a_tilda = mod_switch_general(ct[:, :n_lwe], big).t().contiguous()
+    with span("rotation.ext_blocks", ct.device):
+        b_tilda = big - mod_switch_general(ct[:, n_lwe], big)       # (B,)
+        acc = monomial_mul_blocks(lut_blocks.expand(b, k, 2, n), b_tilda, k)
+        # (B, k, 2, N) -> (2, k*N, B): block r in rows [rN, (r+1)N)
+        acc = acc.permute(2, 1, 3, 0).reshape(2, k * n, b).contiguous()
+        a_tilda = mod_switch_general(ct[:, :n_lwe], big).t().contiguous()
+    count("rotation.block_rows", b * k)
     for i in range(n_lwe):
         digits = rotate_decompose(p, acc, a_tilda[i])
         acc = extprod(digits, bands[i], acc, k, nd, lo)
@@ -271,11 +279,13 @@ def blind_rotate_extended_rm(p: TFHEParams, bands: torch.Tensor,
     lo = band_limb_drop(p)
     big = 2 * k * n
     b = ct.shape[0]
-    b_tilda = big - mod_switch_general(ct[:, n_lwe], big)           # (B,)
-    acc = monomial_mul_blocks(lut_blocks.expand(b, k, 2, n), b_tilda, k)
-    # (B, k, 2, N) -> (2, B, k*N): block r in columns [rN, (r+1)N)
-    acc = acc.permute(2, 0, 1, 3).reshape(2, b, k * n).contiguous()
-    a_tilda = mod_switch_general(ct[:, :n_lwe], big).t().contiguous()
+    with span("rotation.ext_blocks", ct.device):
+        b_tilda = big - mod_switch_general(ct[:, n_lwe], big)       # (B,)
+        acc = monomial_mul_blocks(lut_blocks.expand(b, k, 2, n), b_tilda, k)
+        # (B, k, 2, N) -> (2, B, k*N): block r in columns [rN, (r+1)N)
+        acc = acc.permute(2, 0, 1, 3).reshape(2, b, k * n).contiguous()
+        a_tilda = mod_switch_general(ct[:, :n_lwe], big).t().contiguous()
+    count("rotation.block_rows", b * k)
     for i in range(n_lwe):
         digits = rotate_decompose_e(p, acc, a_tilda[i])
         acc = contract(digits.view(b * k, -1), bands[i],

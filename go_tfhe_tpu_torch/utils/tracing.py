@@ -36,6 +36,10 @@ span                       covers
 ``engine.bootstrap``       ``engine._bootstrap`` and ``bootstrap_many``
                            (``route``, ``batch``, ``key_switch``)
 ``engine.rotation``        the blind rotation: all ``lwe_n`` steps
+``rotation.ext_blocks``    an extended rotation's set-up (k > 1 only,
+                           both routes): the mod switch at 2kN, the k
+                           blocks' first rotation and the accumulator's
+                           layout for the step kernels
 ``engine.sample_extract``  the sample extraction
 ``key_switch``             ``ops.keyswitch.identity_key_switch``
 ``reencrypt``              ``proxyreenc.reencrypt``
@@ -44,10 +48,12 @@ span                       covers
 =========================  ==============================================
 
 **Counters** (while on): ``rotation.steps``, the blind-rotation steps run
-(``lwe_n`` a rotation); ``launch.host_ns``, the host's nanoseconds inside
-``ops.cuda_t.launch`` (library lookup, device guard, stream, the ctypes
-call).  The program's kernel launches are ``ops.cuda_t.launch_counts``,
-always counted; :func:`snapshot` reads them.
+(``lwe_n`` a rotation); ``rotation.block_rows``, the rows an extended
+rotation's product contracts in each step (B * k a rotation: K8's or K5's
+batch with the k blocks folded in); ``launch.host_ns``, the host's
+nanoseconds inside ``ops.cuda_t.launch`` (library lookup, device guard,
+stream, the ctypes call).  The program's kernel launches are
+``ops.cuda_t.launch_counts``, always counted; :func:`snapshot` reads them.
 
 **Always on**, whatever the switch:
 

@@ -96,22 +96,42 @@ def _ext_inputs(p, b, seed):
 
 @pytest.mark.parametrize("modulus", [1024, 1536, 8192, 16384, 36864, 1 << 17])
 def test_mod_switch_general_matches_jax(jx, modulus):
-    """Every 2kN the profiles use (test_ext2/3, uint6/7/8) and the 2^17
-    bound, where the JAX package's uint32 products wrap; the inputs near
-    2^32 give 2kN itself."""
+    """Every 2kN the profiles use (test_ext2/3, uint6/7/8): the JAX
+    package's words, the rounded quotient, and 2kN itself for the inputs
+    near 2^32.  At 2^17 the JAX package's 16-bit result wraps and is no
+    longer the quotient, and the port refuses the modulus."""
     rng = np.random.default_rng(modulus)
     edges = np.asarray([0, 1, 2 ** 31 - 1, 2 ** 31, 2 ** 32 - 1,
                         2 ** 32 - 2 ** 15, 2 ** 32 - (2 ** 31) // modulus,
                         2 ** 32 - (2 ** 31) // modulus - 1], np.uint64)
     x = np.concatenate([edges.astype(np.uint32), _u32(rng, (500,))])
     want = np.asarray(jx.br.mod_switch_general(jx.jnp.asarray(x), modulus))
+    exact = (x.astype(np.float64) * modulus + 2 ** 31) // 2 ** 32
+    if modulus > 1 << 16:
+        assert (want != exact).any()
+        with pytest.raises(ValueError, match="2\\^16"):
+            mod_switch_general(_t(x), modulus)
+        return
     got = mod_switch_general(_t(x), modulus)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
-    if modulus <= 1 << 16:             # no uint32 wrap: the rounded quotient
-        exact = (x.astype(np.float64) * modulus + 2 ** 31) // 2 ** 32
-        np.testing.assert_array_equal(got.numpy(), exact)
-        assert got.max().item() == modulus == int(got[4])
+    np.testing.assert_array_equal(got.numpy(), exact)
+    assert got.max().item() == modulus == int(got[4])
+
+
+@pytest.mark.parametrize("modulus", [36_864, 65_535, 1 << 16])
+def test_mod_switch_general_is_exact_up_to_2_16(modulus):
+    """Exact mod M up to the guard's 2^16, on the words at and beside the
+    first 64 rounding edges and at the last 64 (floor((x M + 2^31) / 2^32)
+    steps between x = floor((j 2^32 - 2^31) / M) and the word after)."""
+    edge = [((j << 32) - (1 << 31)) // modulus for j in range(1, modulus + 1)]
+    x = np.asarray(sorted({0, 1, 0xFFFF0000, (1 << 32) - 1, *edge[-64:],
+                           *[e + d for e in edge[:64] for d in (-1, 0, 1)]}),
+                   np.uint64)
+    got = mod_switch_general(_t(x.astype(np.uint32)), modulus)
+    exact = (x * modulus + (1 << 31)) >> 32
+    np.testing.assert_array_equal(got.numpy().astype(np.uint64) % modulus,
+                                  exact % modulus)
 
 
 @pytest.mark.parametrize("k", [2, 3, 4])

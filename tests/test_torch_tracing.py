@@ -5,6 +5,7 @@ clock, with the counters and the key switch's transient bytes that the
 profile's shapes give; outputs are the same words either way."""
 
 import contextlib
+import dataclasses
 import importlib.util
 import json
 import os
@@ -210,6 +211,85 @@ def test_outputs_equal_on_and_off(which, fast, pbs):
 
 
 # ---------------------------------------------------------------------------
+# The extended routes (k > 1).
+# ---------------------------------------------------------------------------
+
+# The two extended routes by the key's layout (engine._route): K4/K5 for a
+# transposed key where the transposed kernels fit, K6/K8 otherwise.
+EXT_ROUTES = {True: "blind_rotate_extended_t",
+              False: "blind_rotate_extended_rm"}
+
+
+@pytest.fixture(scope="module")
+def ext9():
+    """A toy profile at uint8's k = 9, gadget and key switch, on N 256."""
+    p = dataclasses.replace(params.UINT8_CENTERED, name="toy_uint8",
+                            lwe_n=24, n=256, nbit=8, message_modulus=16)
+    gen = torch.Generator().manual_seed(23)
+    sk = keys.gen_secret_key(gen, p, "cpu")
+    ck = keys.gen_cloud_key(gen, sk, p)
+    msgs = torch.arange(5) % p.message_modulus
+    ct = cipher.lwe_encrypt_message(gen, msgs, p.message_modulus,
+                                    p.lwe_alpha, sk.lv0)
+    return p, ck, ct
+
+
+def _ext_call(ext9, transposed):
+    p, ck, ct = ext9
+    ck = dataclasses.replace(ck, transposed=transposed)
+    assert engine._route(ck) == EXT_ROUTES[transposed]
+    return lambda: lut.bootstrap_func(
+        ck, ct, lambda x: (3 * x + 1) % p.message_modulus, p.message_modulus)
+
+
+@pytest.mark.parametrize("transposed", [True, False], ids=["k4k5", "k6k8"])
+def test_ext_blocks_is_recorded_once_a_bootstrap(transposed, ext9):
+    fn = _ext_call(ext9, transposed)
+    with tracing.enabled():
+        fn()
+        fn()
+    spans = tracing.snapshot()["spans"]
+    by_id = {s["id"]: s for s in spans}
+    blocks = [s for s in spans if s["name"] == "rotation.ext_blocks"]
+    rotations = [s for s in spans if s["name"] == "engine.rotation"]
+    assert len(blocks) == len(rotations) == 2
+    assert [by_id[s["parent"]]["name"] for s in blocks] == [
+        "engine.rotation"] * 2
+    assert len({s["call"] for s in blocks}) == 2
+    boots = [s for s in spans if s["name"] == "engine.bootstrap"]
+    assert {s["attrs"]["route"] for s in boots} == {EXT_ROUTES[transposed]}
+
+
+@pytest.mark.parametrize("transposed", [True, False], ids=["k4k5", "k6k8"])
+def test_block_rows_count_b_times_k_a_rotation(transposed, ext9):
+    p, _, ct = ext9
+    _, snap = _run_on(_ext_call(ext9, transposed))
+    assert snap["counters"]["rotation.block_rows"] == (
+        ct.shape[0] * p.poly_extend_factor)
+    assert snap["counters"]["rotation.steps"] == p.lwe_n
+
+
+@pytest.mark.parametrize("transposed", [True, False], ids=["k4k5", "k6k8"])
+def test_ext_blocks_off_records_nothing_and_gives_the_same_words(
+        transposed, ext9):
+    fn = _ext_call(ext9, transposed)
+    off = fn()
+    snap = tracing.snapshot()
+    assert snap["spans"] == [] and snap["counters"] == {}
+    on, snap = _run_on(fn)
+    assert snap["counters"]["rotation.block_rows"] > 0
+    assert torch.equal(on, off)
+
+
+def test_k1_rotations_record_no_ext_blocks(fast):
+    p, gen, sk, ck = fast
+    _, snap = _run_on(lambda: gates.NAND(ck, _bits(gen, p, sk),
+                                         _bits(gen, p, sk)))
+    assert "rotation.ext_blocks" not in {s["name"] for s in snap["spans"]}
+    assert "rotation.block_rows" not in snap["counters"]
+
+
+# ---------------------------------------------------------------------------
 # Clock, switch, bounds, export.
 # ---------------------------------------------------------------------------
 
@@ -405,3 +485,34 @@ def test_program_trace_counts_small_form_launches_once():
     counts.update(rotate_decompose_t=700, extprod_t=700,
                   extprod_t_small=700)
     assert tool._kernel_launches(counts) == 1400
+
+
+def test_program_trace_reads_the_extended_set_up(ext9, monkeypatch):
+    """tools/torch_program_trace.py's pass (a) on a toy k 9 cell: the
+    ``rotation.ext_blocks`` span's host ms a call and ``rotation.block_rows``
+    a rotation (B * k).  The CPU runs the kernels' plain versions, so the
+    span has no device ms and no entry launches."""
+    import time
+
+    from go_tfhe_tpu_torch.utils.benchmarking import load_script
+    tool = load_script("tools/torch_program_trace.py")
+    harness = tool.harness
+    p = ext9[0]
+    monkeypatch.setitem(params.PROFILES, p.name, p)
+    config = {"profile": p.name,
+              "reference": "benchmark/reference/tfhe_ext.py",
+              "params": {f: getattr(p, f) for f in harness.PROFILE_FIELDS}}
+    mix = {"op": "lut", "table": [(3 * x + 1) % 16 for x in range(16)],
+           "batch": 4, "loop": "closed", "chain": False,
+           "distinct_batches": 1}
+    cell = harness.Cell("toy", 1, config,
+                        harness.load_reference(config["reference"]), mix,
+                        [], [])
+    r = harness.Run(cell, 2 ** 33 + 7, 0.0, "cpu", time.time())
+    r.setup()
+    line = tool.pass_a(r, tracing, 2)
+    assert line["calls"] == 2
+    assert line["rotation.block_rows"] == 4 * p.poly_extend_factor
+    assert line["rotation.ext_blocks"]["host_ms"] > 0
+    assert line["rotation.ext_blocks"]["device_ms"] is None
+    assert line["launches_per_call_by_entry"] == {}

@@ -24,6 +24,14 @@ cell's own calls in two passes with the recorder on:
     * ``entry_host_ms_per_call``: host duration of the ``entry.*`` span,
       median over calls (beside the window's ``launch.host_ms_per_call``,
       taken with the recorder off: the difference is the recorder's cost);
+    * ``rotation.ext_blocks``: the extended rotation's set-up (k > 1, one
+      span a bootstrap), its host and device ms, medians over calls;
+    * ``rotation.block_rows``: the counter over the rotations, the rows
+      K8 (or K5) contracts a step (B * k);
+    * ``launches_per_call_by_entry``: each kernel entry's launches a call
+      (``ops.cuda_t.launch_counts``, whose ``extprod_t_small`` is a part of
+      ``extprod_t``; ``lwe_n`` of ``rotate_decompose_ext`` and of
+      ``extprod`` a call at uint8);
     * ``sites``: each span's host and device ms, medians over calls;
 
 (b) under ``torch.profiler``: each stretch in which no operation ran on the
@@ -83,11 +91,19 @@ def _kernel_launches(counts: dict) -> int:
     return sum(v for k, v in counts.items() if k != "extprod_t_small")
 
 
+def _per_rotation(snap: dict, counter: str):
+    """A counter over the pass's rotations (``engine.rotation`` spans)."""
+    rotations = sum(s["name"] == "engine.rotation" for s in snap["spans"])
+    value = snap["counters"].get(counter)
+    return value / rotations if rotations and value is not None else None
+
+
 def pass_a(r, tracing, n: int) -> dict:
     """The recorder on, no profiler (see the module docstring)."""
     from go_tfhe_tpu_torch.ops import cuda_t
     tracing.reset()
-    before = _kernel_launches(cuda_t.launch_counts)
+    counts = dict(cuda_t.launch_counts)
+    before = _kernel_launches(counts)
     with tracing.enabled():
         _calls(r, n)
     snap = tracing.snapshot()
@@ -97,9 +113,7 @@ def pass_a(r, tracing, n: int) -> dict:
         by_call.setdefault(s["call"], []).append(s)
     share, per_step, entry_ms, transient = [], [], [], []
     sites: dict = {}
-    rotations = sum(s["name"] == "engine.rotation" for s in snap["spans"])
-    steps = (snap["counters"].get("rotation.steps", 0) / rotations
-             if rotations else None)
+    steps = _per_rotation(snap, "rotation.steps")
     for spans in by_call.values():
         named = {}
         for s in spans:
@@ -122,6 +136,8 @@ def pass_a(r, tracing, n: int) -> dict:
                 and boot[0]["device_ms"]):
             share.append(100.0 * switch[0]["device_ms"] / boot[0]["device_ms"])
     host_ns = snap["counters"].get("launch.host_ns")
+    sites = {name: {k: _median(v) for k, v in site.items()}
+             for name, site in sites.items()}
     return {
         "calls": len(by_call),
         "key_switch.span_share": _median(share),
@@ -131,9 +147,14 @@ def pass_a(r, tracing, n: int) -> dict:
         "launch.host_us_per_kernel": (host_ns / 1e3 / launches
                                       if host_ns and launches else None),
         "launches_per_call": launches / max(1, len(by_call)),
+        "launches_per_call_by_entry": {
+            name: (count - counts.get(name, 0)) / max(1, len(by_call))
+            for name, count in snap["launches"].items()
+            if count != counts.get(name, 0)},
         "entry_host_ms_per_call": _median(entry_ms),
-        "sites": {name: {k: _median(v) for k, v in site.items()}
-                  for name, site in sites.items()},
+        "rotation.ext_blocks": sites.get("rotation.ext_blocks"),
+        "rotation.block_rows": _per_rotation(snap, "rotation.block_rows"),
+        "sites": sites,
         "dropped": snap["dropped"],
     }
 
