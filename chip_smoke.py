@@ -597,6 +597,69 @@ def kernels_against_plain(gen, dev, shape_times):
     return errs, times, lib
 
 
+# Rotations a side when the steps' eager loop and their graph are timed.
+ROT_REPS = 5
+
+
+def rotation_graph_against_eager(dev, seed: int, shape_times) -> None:
+    """blind_rotate_t's steps replayed from a CUDA graph (B <=
+    SMALL_BATCH_MAX on a card) against its first, eager, call and the
+    plain versions, exactly, at B 1 on full-size 128bit and uint5 bands
+    (uniform key words); then the steps of a rotation (n_lwe K1 + K2) in
+    the eager loop and in the graph, host clock to the end of the card's
+    work, ROT_REPS of each in turns (medians): what a chained gate's
+    rotation costs the host, eager against graph.  Draws from its own
+    generator, so the later phases' keys stay as they were."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 4)
+
+    def words(shape):
+        return torch.randint(-2 ** 31, 2 ** 31, shape, dtype=torch.int32,
+                             device=dev, generator=gen)
+
+    def wall_ms(fn):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0)
+
+    for p in (params.P128, U5):
+        bands = cuda_t.pack_bsk_band_t(words((p.lwe_n, 2 * p.l, 2, p.n)),
+                                       cuda_t.band_limb_drop(p))
+        ct, tv = words((1, p.lwe_n + 1)), words((2, p.n))
+        before = dict(blindrotate.rotation_counts)
+        eager = blindrotate.blind_rotate_t(p, bands, ct, tv)  # and captures
+        graph = blindrotate.blind_rotate_t(p, bands, ct, tv)
+        plain = blindrotate.blind_rotate_t(p, bands, ct, tv, plain=True)
+        check(blindrotate.rotation_counts["replayed"]
+              == before["replayed"] + 1,
+              f"the second rotation at {p.name} B=1 was not replayed")
+        e_eager, e_plain = max_abs_err(graph, eager), max_abs_err(graph,
+                                                                  plain)
+        print(f"   {p.name:12s} B=    1  rotation graph vs eager max|err| "
+              f"{e_eager}, vs plain max|err| {e_plain}", flush=True)
+        check(e_eager == 0 and e_plain == 0,
+              f"the graphed rotation disagrees at {p.name} B=1")
+        step_graph = blindrotate._graphs_of(bands)[
+            blindrotate._graph_shape(p, 1, dev)]
+        acc = words((2, p.n, 1))
+        a_tilda = torch.randint(0, 2 * p.n + 1, (p.lwe_n, 1),
+                                dtype=torch.int32, device=dev, generator=gen)
+        ms = {"eager": [], "graph": []}
+        for _ in range(ROT_REPS):
+            ms["eager"].append(wall_ms(
+                lambda: blindrotate._steps(p, bands, acc, a_tilda)))
+            ms["graph"].append(wall_ms(lambda: step_graph.run(acc, a_tilda)))
+        eager_ms, graph_ms_ = (float(np.median(ms[k]))
+                               for k in ("eager", "graph"))
+        print(f"   rotation steps {p.name} B=1: eager loop {eager_ms:.3f} "
+              f"ms, graph {graph_ms_:.3f} ms ({p.lwe_n} K1 + K2, host "
+              f"clock to the card's end, medians of {ROT_REPS})", flush=True)
+        shape_times[f"rotation steps {p.name} B=1, eager vs graph"] = {
+            "ms": graph_ms_, "eager_ms": eager_ms, "plain_ms": None,
+            "library_ms": None, "eager_runs_ms": ms["eager"],
+            "graph_runs_ms": ms["graph"]}
+
+
 def k2_form(fn, b: int, what: str) -> tuple:
     """(the form's counter name, fn()'s output) of one K2 call fn: the
     small form's launches also count under ``extprod_t_small``, and it
@@ -2170,6 +2233,7 @@ def main() -> int:
     gen_k9 = torch.Generator(device=dev).manual_seed(args.seed + 1)
     shape_times.update(step_pipe_kernels_against_plain(gen, gen_k9, dev,
                                                        errs, times))
+    rotation_graph_against_eager(dev, args.seed, shape_times)
     done(t0)
 
     p = params.P128_FAST

@@ -5,7 +5,10 @@ Per input LWE coefficient the accumulator is rotated by the mod-switched
 coefficient and CMUXed with the corresponding bootstrapping-key row; the
 lwe_n steps are sequential and throughput comes from the batch axis.  One
 code path serves both devices: the step kernels (ops/cuda_*.py) run their
-plain versions on CPU tensors and the Hopper kernels on CUDA tensors.
+plain versions on CPU tensors and the Hopper kernels on CUDA tensors.  At
+the small batches where the host's launches would set the pace
+(:func:`takes_graph`), :func:`blind_rotate_t` replays its steps from a CUDA
+graph.
 
 Mod switch (evaluator/evaluator.go:116,122):
     b~ = 2N - ((b + 2^(31-NBIT-1)) >> (32-NBIT-1))
@@ -53,10 +56,14 @@ launch counters and chip_smoke.py already read, so three differ):
 
 from __future__ import annotations
 
+import time
+import weakref
+
 import torch
 
 from ..params import TFHEParams
-from ..utils.torus import shr, wrap_i32
+from ..utils import tracing
+from ..utils.torus import TORUS, shr, wrap_i32
 from ..utils.tracing import count, span
 from .cuda_ext import rotate_decompose_ext, rotate_decompose_ext_ref
 from .cuda_ext_t import (extprod_ext_t, extprod_ext_t_ref,
@@ -64,8 +71,9 @@ from .cuda_ext_t import (extprod_ext_t, extprod_ext_t_ref,
 from .cuda_extprod import extprod, extprod_ref
 from .cuda_rotate import rotate_decompose, rotate_decompose_ref
 from .cuda_step import fused_rotate_step, fused_rotate_step_ref
-from .cuda_t import (band_limb_drop, extprod_t, extprod_t_ref,
-                     rotate_decompose_t, rotate_decompose_t_ref)
+from .cuda_t import (SMALL_BATCH_MAX, band_limb_drop, extprod_t,
+                     extprod_t_ref, launch_counts, rotate_decompose_t,
+                     rotate_decompose_t_ref)
 from .decompose import gadget_decompose
 from .extprod import cmux, external_product
 from .polymul import negacyclic_extprod_toeplitz
@@ -80,6 +88,11 @@ from .rotate import monomial_mul, monomial_mul_blocks
 # recomputes a batch tile's digits in each of the 2*N/64 blocks that read
 # it.
 FUSED_STEP = False
+
+# The rotations that blind_rotate_t ran, and of them those whose steps were
+# replayed from a CUDA graph (:func:`takes_graph`).  Always counted, as
+# cuda_t.launch_counts are.
+rotation_counts = {"rotations": 0, "replayed": 0}
 
 
 def mod_switch_2n(x: torch.Tensor, p: TFHEParams, theta: int = 0
@@ -207,20 +220,127 @@ def blind_rotate_t(p: TFHEParams, bands: torch.Tensor, ct: torch.Tensor,
     plain:   run the kernels' plain versions on any device (to hold the
              kernels against them on the card).
     Returns (B, 2, N) int32 TRLWE accumulators.
+
+    Where :func:`takes_graph` says so, the n_lwe steps are one replay of a
+    CUDA graph of the same launches (:class:`_StepGraph`), captured after
+    the first, eager, rotation at the batch; the mod switch, the test
+    vector's first rotation and the layouts stay eager.
     """
     rotate_decompose = rotate_decompose_t_ref if plain else rotate_decompose_t
     extprod = extprod_t_ref if plain else extprod_t
-    n_lwe, nd, lo = p.lwe_n, p.digit_limbs, band_limb_drop(p)
+    n_lwe = p.lwe_n
     b = ct.shape[0]
     b_tilda = 2 * p.n - mod_switch_2n(ct[:, n_lwe], p, theta)      # (B,)
     tv = testvec.expand(b, 2, p.n)
-    acc = monomial_mul(tv, b_tilda[:, None])                       # (B, 2, N)
-    acc = acc.permute(1, 2, 0).contiguous()                        # (2, N, B)
-    a_tilda = mod_switch_2n(ct[:, :n_lwe], p, theta).t().contiguous()
-    for i in range(n_lwe):
+    acc = monomial_mul(tv, b_tilda[:, None]).permute(1, 2, 0)      # (2, N, B)
+    a_tilda = mod_switch_2n(ct[:, :n_lwe], p, theta).t()           # (n_lwe, B)
+    graphed = takes_graph(ct.device, b, plain)
+    graphs = _graphs_of(bands) if graphed else {}
+    shape = _graph_shape(p, b, ct.device)
+    if shape in graphs:
+        out = graphs[shape].run(acc, a_tilda)
+        rotation_counts["replayed"] += 1
+    else:
+        acc = _steps(p, bands, acc.contiguous(), a_tilda.contiguous(),
+                     rotate_decompose, extprod)
+        out = acc.permute(2, 0, 1).contiguous()                    # (B, 2, N)
+        if graphed:
+            # The eager rotation was the kernels' first use at this batch
+            # (their first launches, attribute calls and K2's shape rule),
+            # so the capture meets none of them.
+            graphs[shape] = _StepGraph(p, bands, b, ct.device)
+    rotation_counts["rotations"] += 1
+    return out
+
+
+def _steps(p: TFHEParams, bands: torch.Tensor, acc: torch.Tensor,
+           a_tilda: torch.Tensor, rotate_decompose=rotate_decompose_t,
+           extprod=extprod_t) -> torch.Tensor:
+    """blind_rotate_t's n_lwe steps on the (2, N, B) accumulator: K1, then
+    K2 with the step's band."""
+    nd, lo = p.digit_limbs, band_limb_drop(p)
+    for i in range(p.lwe_n):
         digits = rotate_decompose(p, acc, a_tilda[i])
         acc = extprod(digits, bands[i], acc, nd, lo)
-    return acc.permute(2, 0, 1).contiguous()                       # (B, 2, N)
+    return acc
+
+
+def takes_graph(device: torch.device, b: int, plain: bool = False) -> bool:
+    """Whether blind_rotate_t replays its steps from a CUDA graph: the
+    kernels on a card (not their plain versions) at a batch of at most
+    cuda_t.SMALL_BATCH_MAX, where the host's two launches a step take
+    longer than the card's two kernels (PERF.md, §5)."""
+    return not plain and device.type == "cuda" and b <= SMALL_BATCH_MAX
+
+
+# id(bands) -> (a weak reference to them, {_graph_shape: _StepGraph}).  The
+# reference's callback drops the entry when the bands go, so that no replay
+# outlives the bands it reads and freeing a key frees its graphs.
+_graphs: dict = {}
+
+
+def _graphs_of(bands: torch.Tensor) -> dict:
+    """The step graphs captured over ``bands``."""
+    entry = _graphs.get(id(bands))
+    if entry is None or entry[0]() is not bands:
+        key = id(bands)
+        entry = _graphs[key] = (
+            weakref.ref(bands, lambda _, key=key: _graphs.pop(key, None)), {})
+    return entry[1]
+
+
+def _graph_shape(p: TFHEParams, b: int, device: torch.device) -> tuple:
+    """What a step graph's launches depend on, besides its bands."""
+    return (device.index, b, p.n, 2 * p.l, p.digit_limbs, band_limb_drop(p),
+            p.lwe_n, p.bgbit, p.decomposition_offset)
+
+
+class _StepGraph:
+    """blind_rotate_t's n_lwe steps at one batch, captured once in a CUDA
+    graph: the same K1 and K2 launches with the same arguments, in the same
+    order, as the eager loop (:func:`_steps`).
+
+    The graph reads its own input buffers, ``acc`` (2, N, B) and
+    ``a_tilda`` (n_lwe, B), which :meth:`run` fills, and writes ``out`` in
+    its private pool, which also holds the steps' digits and accumulators
+    (a few of each, reused within the capture).  It holds no reference to
+    the bands: :func:`_graphs_of` drops it with them.  A replay runs on the
+    caller's current stream; calls on two streams must not overlap, since
+    they share the buffers."""
+
+    def __init__(self, p: TFHEParams, bands: torch.Tensor, b: int,
+                 device: torch.device):
+        self.acc = torch.zeros((2, p.n, b), dtype=TORUS, device=device)
+        self.a_tilda = torch.zeros((p.lwe_n, b), dtype=torch.int32,
+                                   device=device)
+        before = dict(launch_counts)
+        self.graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.device(device), torch.cuda.graph(
+                    self.graph, stream=torch.cuda.Stream(device)):
+                self.out = _steps(p, bands, self.acc, self.a_tilda)
+        finally:
+            # The capture ran nothing: its launches count at each replay.
+            self.launches = {name: launch_counts[name] - n
+                             for name, n in before.items()
+                             if launch_counts[name] != n}
+            launch_counts.update(before)
+
+    def run(self, acc: torch.Tensor, a_tilda: torch.Tensor) -> torch.Tensor:
+        """The steps from ``acc`` (2, N, B) with amounts ``a_tilda``
+        (n_lwe, B), any strides; returns a new (B, 2, N) tensor (never a
+        view of ``out``, which the next replay overwrites).  While the
+        recorder is on, ``launch.host_ns`` adds the replay's host time."""
+        self.acc.copy_(acc)
+        self.a_tilda.copy_(a_tilda)
+        t0 = time.perf_counter_ns() if tracing.active else 0
+        self.graph.replay()
+        if t0:
+            count("launch.host_ns", time.perf_counter_ns() - t0)
+        for name, n in self.launches.items():
+            launch_counts[name] += n
+        return self.out.permute(2, 0, 1).clone(
+            memory_format=torch.contiguous_format)
 
 
 def blind_rotate_extended_t(p: TFHEParams, bands: torch.Tensor,

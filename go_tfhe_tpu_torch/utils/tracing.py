@@ -63,6 +63,9 @@ stream, the ctypes call).  The program's kernel launches are
   and float32 limb form, the digits, the float32 one-hot, the product),
   read from the tensors; while on, also the ``key_switch`` (``reencrypt``)
   span's attribute ``transient_bytes`` for that call;
+* the rotation counts (``ops.blindrotate.rotation_counts``): the
+  rotations that ``blind_rotate_t`` ran, and of them those whose steps were
+  replayed from a CUDA graph; :func:`reset` zeroes them;
 * first-run records: the host seconds of each span site's first run in the
   process (``first_run_s``, with ``library.load`` and ``library.nvcc``,
   the kernel library's load and its build, 0 where it was built already),
@@ -236,22 +239,26 @@ def note_first_run(name: str, seconds: float) -> None:
 
 
 def reset() -> None:
-    """Drop the span records, counters and peaks (not the first-run
-    records, which describe the process)."""
+    """Drop the span records, counters and peaks and zero the rotation
+    counts (not the first-run records, which describe the process)."""
     global _dropped
+    from ..ops import blindrotate
     _spans.clear()
     _counters.clear()
     _peaks.clear()
     _dropped = 0
+    blindrotate.rotation_counts.update(
+        dict.fromkeys(blindrotate.rotation_counts, 0))
 
 
 def snapshot() -> dict:
     """What was recorded since :func:`reset`: ``spans`` (records, oldest
     first, each with ``device_ms``: None off a CUDA device), ``counters``,
-    ``peaks``, ``launches`` (``ops.cuda_t.launch_counts`` as they stand),
+    ``peaks``, ``rotations`` (``ops.blindrotate.rotation_counts``),
+    ``launches`` (``ops.cuda_t.launch_counts`` as they stand),
     ``first_run_s``, ``first_launch_s`` and ``dropped``.  Waits for the
     card where a span's end event has not completed."""
-    from ..ops import cuda_t
+    from ..ops import blindrotate, cuda_t
     for rec in _spans:
         events = rec.pop("_events", None)
         if events is not None:
@@ -261,6 +268,7 @@ def snapshot() -> dict:
             rec.setdefault("device_ms", None)
     return {"spans": [dict(rec) for rec in _spans],
             "counters": dict(_counters), "peaks": dict(_peaks),
+            "rotations": dict(blindrotate.rotation_counts),
             "launches": dict(cuda_t.launch_counts),
             "first_run_s": dict(_first_run),
             "first_launch_s": {f"{entry}@cuda:{index}": s
