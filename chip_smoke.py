@@ -639,15 +639,15 @@ def rotation_graph_against_eager(dev, seed: int, shape_times) -> None:
               f"{e_eager}, vs plain max|err| {e_plain}", flush=True)
         check(e_eager == 0 and e_plain == 0,
               f"the graphed rotation disagrees at {p.name} B=1")
-        step_graph = blindrotate._graphs_of(bands)[
-            blindrotate._graph_shape(p, 1, dev)]
+        (step_graph,) = blindrotate._graphs_of(bands).values()
+        route = blindrotate.ROUTES["blind_rotate_t"]
         acc = words((2, p.n, 1))
         a_tilda = torch.randint(0, 2 * p.n + 1, (p.lwe_n, 1),
                                 dtype=torch.int32, device=dev, generator=gen)
         ms = {"eager": [], "graph": []}
         for _ in range(ROT_REPS):
-            ms["eager"].append(wall_ms(
-                lambda: blindrotate._steps(p, bands, acc, a_tilda)))
+            ms["eager"].append(wall_ms(lambda: route.steps(
+                p, bands, acc, a_tilda, route.kernels)))
             ms["graph"].append(wall_ms(lambda: step_graph.run(acc, a_tilda)))
         eager_ms, graph_ms_ = (float(np.median(ms[k]))
                                for k in ("eager", "graph"))

@@ -60,13 +60,8 @@ import warnings
 import torch
 
 from .keys import CloudKey, prepare_bootstrap_kernels
-from .ops.blindrotate import (blind_rotate, blind_rotate_block,
-                              blind_rotate_block_portable,
-                              blind_rotate_extended, blind_rotate_extended_rm,
-                              blind_rotate_extended_t, blind_rotate_t,
-                              blind_rotate_tpu)
+from .ops.blindrotate import ROUTES, rotate
 from .ops.cuda_ext_t import ext_t_fits
-from .ops.cuda_pipe import blind_rotate_pipe
 from .ops.keyswitch import identity_key_switch
 from .ops.sample_extract import sample_extract
 from .utils.torus import f64_to_torus, i32
@@ -99,19 +94,9 @@ PREFER_BLOCK_ROTATION = False
 PREFER_PIPE = False
 
 
-_ROTATIONS = {f.__name__: f for f in (blind_rotate_t, blind_rotate_block,
-                                      blind_rotate_extended_t,
-                                      blind_rotate_extended_rm,
-                                      blind_rotate_tpu, blind_rotate_pipe)}
-# The portable rotations (the JAX package's off-TPU cores), on D bands.
-_PORTABLE = {f.__name__: f for f in (blind_rotate, blind_rotate_extended,
-                                     blind_rotate_block_portable)}
-
-
 def _route(ck: CloudKey) -> str:
-    """The blind rotation that ``bootstrap`` runs for this key: the name of
-    a function of ops/blindrotate.py or ops/cuda_pipe.py (see the module
-    docstring)."""
+    """The blind rotation that ``bootstrap`` runs for this key: a name of
+    ops/blindrotate.ROUTES (see the module docstring)."""
     p = ck.params
     if p.poly_extend_factor > 1:
         return ("blind_rotate_extended_t" if ck.transposed and ext_t_fits(p)
@@ -130,10 +115,13 @@ def _route(ck: CloudKey) -> str:
 
 
 def _bootstrap(ck: CloudKey, ct: torch.Tensor, testvec, key_switch: bool,
-               plain: bool, route: str | None = None) -> torch.Tensor:
+               plain: bool, route: str | None = None, theta: int = 0,
+               outputs: int | None = None) -> torch.Tensor:
     """The bootstrap through the blind rotation ``route`` (a name of
-    :data:`_ROTATIONS` or :data:`_PORTABLE`; :func:`_route`'s by
-    default)."""
+    ops/blindrotate.ROUTES; :func:`_route`'s by default).  ``theta`` and
+    ``outputs`` are bootstrap_many's: the coarse mod switch's exponent,
+    and the number of outputs, extracted at indices 0..outputs-1 and
+    stacked first; None extracts one, at index 0."""
     p = ck.params
     k = p.poly_extend_factor
     tv = ck.testvec if testvec is None else testvec
@@ -149,19 +137,20 @@ def _bootstrap(ck: CloudKey, ct: torch.Tensor, testvec, key_switch: bool,
     with span("engine.bootstrap", dev, route=route, batch=ct2.shape[0],
               key_switch=key_switch):
         with span("engine.rotation", dev):
-            if route in _PORTABLE:
-                rotated = _PORTABLE[route](
-                    p, prepare_bootstrap_kernels(ck.bsk, p), ct2, tv)
-            else:
-                rotated = _ROTATIONS[route](p, ck.bands, ct2, tv,
-                                            plain=plain)
+            # A portable route reads D bands, built from the raw key on
+            # each call.
+            rotated = rotate(route, p, prepare_bootstrap_kernels(ck.bsk, p)
+                             if ROUTES[route].portable else ck.bands, ct2,
+                             tv, theta, plain)
             count("rotation.steps", p.lwe_n)
         if k > 1:                           # big-poly coefficient 0
             rotated = rotated[:, 0]
         with span("engine.sample_extract", dev):
-            lv1 = sample_extract(rotated, 0)
+            lv1 = (sample_extract(rotated, 0) if outputs is None else
+                   torch.stack([sample_extract(rotated, t)
+                                for t in range(outputs)]))
         out = identity_key_switch(p, ck.ksk, lv1) if key_switch else lv1
-    return out.reshape(lead + out.shape[-1:])
+    return out.reshape(out.shape[:-2] + lead + out.shape[-1:])
 
 
 def bootstrap(ck: CloudKey, ct: torch.Tensor, testvec=None,
@@ -213,26 +202,9 @@ def bootstrap_many(ck: CloudKey, ct: torch.Tensor, multi_lut: torch.Tensor,
             "switch multiplies its rounding noise; at messageModulus 8 "
             "and 128bit_fast theta = 2 measured 5/1024 wrong outputs",
             stacklevel=2)
-    lead = ct.shape[:-1]
-    ct2 = ct.reshape(-1, ct.shape[-1])
-    tv = multi_lut.reshape(-1, 2, p.n) if multi_lut.dim() > 2 else multi_lut
     if route not in ("blind_rotate", "blind_rotate_t"):
         raise ValueError(f"bootstrap_many: no route {route!r}")
-    dev = ct.device
-    with span("engine.bootstrap", dev, route=route, batch=ct2.shape[0],
-              key_switch=key_switch):
-        with span("engine.rotation", dev):
-            if route == "blind_rotate":
-                rotated = blind_rotate(p, prepare_bootstrap_kernels(ck.bsk, p),
-                                       ct2, tv, theta=theta)
-            else:
-                rotated = blind_rotate_t(p, ck.bands, ct2, tv, theta=theta,
-                                         plain=plain)
-            count("rotation.steps", p.lwe_n)
-        with span("engine.sample_extract", dev):
-            lv1 = torch.stack([sample_extract(rotated, t) for t in range(k)])
-        out = identity_key_switch(p, ck.ksk, lv1) if key_switch else lv1
-    return out.reshape((k,) + lead + out.shape[-1:])
+    return _bootstrap(ck, ct, multi_lut, key_switch, plain, route, theta, k)
 
 
 # ---------------------------------------------------------------------------

@@ -3,12 +3,20 @@
 
 Per input LWE coefficient the accumulator is rotated by the mod-switched
 coefficient and CMUXed with the corresponding bootstrapping-key row; the
-lwe_n steps are sequential and throughput comes from the batch axis.  One
-code path serves both devices: the step kernels (ops/cuda_*.py) run their
-plain versions on CPU tensors and the Hopper kernels on CUDA tensors.  At
-the small batches where the host's launches would set the pace
-(:func:`takes_graph`), :func:`blind_rotate_t` replays its steps from a CUDA
-graph.
+lwe_n steps are sequential and throughput comes from the batch axis.
+
+One function, :func:`rotate`, runs all nine rotations, each an entry of
+:data:`ROUTES`: the mod switch and the test vector's first rotation
+(:func:`_prologue`), the move into the route's accumulator layout
+(:func:`_into`), the route's steps, and the move back (:func:`_back`).
+The kernel routes' steps run the step kernels (ops/cuda_*.py), which run
+their plain versions on CPU tensors and the Hopper kernels on CUDA
+tensors; ``plain`` runs the plain versions on any device.  At the small
+batches where the host's launches would set the pace (:func:`takes_graph`),
+a route marked ``graphed`` replays its steps from a CUDA graph
+(:class:`_StepGraph`).  Only blind_rotate_t's K1 + K2 is marked: it was
+measured on an H100 (PERF.md, §6), and no other route runs at
+small batches in a cell.
 
 Mod switch (evaluator/evaluator.go:116,122):
     b~ = 2N - ((b + 2^(31-NBIT-1)) >> (32-NBIT-1))
@@ -58,6 +66,7 @@ from __future__ import annotations
 
 import time
 import weakref
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -69,6 +78,7 @@ from .cuda_ext import rotate_decompose_ext, rotate_decompose_ext_ref
 from .cuda_ext_t import (extprod_ext_t, extprod_ext_t_ref,
                          rotate_decompose_ext_t, rotate_decompose_ext_t_ref)
 from .cuda_extprod import extprod, extprod_ref
+from .cuda_pipe import pipe_step, pipe_step_ref, pipe_steps
 from .cuda_rotate import rotate_decompose, rotate_decompose_ref
 from .cuda_step import fused_rotate_step, fused_rotate_step_ref
 from .cuda_t import (SMALL_BATCH_MAX, band_limb_drop, extprod_t,
@@ -89,10 +99,9 @@ from .rotate import monomial_mul, monomial_mul_blocks
 # it.
 FUSED_STEP = False
 
-# The rotations that blind_rotate_t ran, and of them those whose steps were
-# replayed from a CUDA graph (:func:`takes_graph`).  Always counted, as
-# cuda_t.launch_counts are.
-rotation_counts = {"rotations": 0, "replayed": 0}
+# The rotations run, and of them those whose steps were replayed from a
+# CUDA graph (:func:`takes_graph`): utils/tracing.py's always-kept counts.
+rotation_counts = tracing.rotation_counts
 
 
 def mod_switch_2n(x: torch.Tensor, p: TFHEParams, theta: int = 0
@@ -123,6 +132,364 @@ def mod_switch_general(x: torch.Tensor, modulus: int) -> torch.Tensor:
     return wrap_i32((acc & mask) >> 16)
 
 
+# ---------------------------------------------------------------------------
+# The rotation.
+# ---------------------------------------------------------------------------
+
+class Route(NamedTuple):
+    """A blind rotation: what of it is its own.
+
+    layout:  the accumulator's layout through the steps (:func:`_into`):
+             "batch" (..., [k,] 2, N), the portable routes', which read the
+             signed D bands (keys.prepare_bootstrap_kernels) and launch no
+             kernel; "col" (2, k*N, B), K1/K2's, K4/K5's and K1 + K9's;
+             "row" (2, B, k*N), K3/K7/K8's, K7/K8's and K6/K8's.
+    steps:   ``steps(p, bands, acc, a_tilda, ops)``: the n_lwe steps from
+             the accumulator ``acc`` with the amounts ``a_tilda``, both in
+             the layout; returns the accumulator.
+    kernels: the ``ops`` that ``steps`` runs: the step kernels' wrappers.
+    plain:   their plain versions, in the same order (``plain=True``).
+    graphed: replays its steps from a CUDA graph where :func:`takes_graph`
+             says so.
+    """
+
+    layout: str
+    steps: Callable
+    kernels: tuple = ()
+    plain: tuple = ()
+    graphed: bool = False
+
+    @property
+    def portable(self) -> bool:
+        """The JAX package's off-TPU cores: D bands, no kernel."""
+        return self.layout == "batch"
+
+
+def rotate(route: str, p: TFHEParams, bands: torch.Tensor, ct: torch.Tensor,
+           testvec: torch.Tensor, theta: int = 0, plain: bool = False
+           ) -> torch.Tensor:
+    """Blind-rotate a batch of LWE ciphertexts through ``route``, a name of
+    :data:`ROUTES`.
+
+    bands:   (n_lwe, 2, 2L, 2N) int32 K2 bands (cuda_t.pack_bsk_band_t) on
+             a kernel route; (n_lwe, 2L, 2, 2N) signed D bands on a
+             portable one.
+    ct:      (B, n_lwe+1) int32 words; (..., n_lwe+1) on a portable route.
+    testvec: (2, N) or (B, 2, N) int32 words; at k > 1 the table's trivial
+             TRLWE blocks, (k, 2, N) or (B, k, 2, N).
+    theta:   the coarse mod switch's exponent (many-LUT extraction, k = 1).
+    plain:   run the kernels' plain versions on any device (to hold the
+             kernels against them on the card); a portable route has none.
+    Returns (B, 2, N) int32 TRLWE accumulators, (B, k, 2, N) at k > 1 (the
+    bootstrap reads block 0 at index 0).
+
+    Where the route is graphed and :func:`takes_graph` says so, the steps
+    are one replay of a CUDA graph of the same launches
+    (:class:`_StepGraph`), captured after the first, eager, rotation at
+    the batch; the prologue and the layouts stay eager.
+    """
+    r = ROUTES[route]
+    b = ct.numel() // ct.shape[-1]
+    graphed = r.graphed and takes_graph(ct.device, b, plain)
+    graphs = _graphs_of(bands) if graphed else {}
+    key = (route, ct.device.index, b, p)
+    graph = graphs.get(key)
+    # The prologue's tensors go straight into the steps, so that nothing
+    # here holds them: the first accumulator goes with the first step.
+    if graph is not None:
+        acc = graph.run(*_prologue(r.layout, p, ct, testvec, theta))
+        rotation_counts["replayed"] += 1
+    else:
+        acc = r.steps(p, bands, *_prologue(r.layout, p, ct, testvec, theta),
+                      r.plain if plain else r.kernels)
+        if graphed:
+            # The eager rotation was the kernels' first use at this batch
+            # (their first launches, attribute calls and K2's shape rule),
+            # so the capture meets none of them.
+            graphs[key] = _StepGraph(r, p, bands, b, ct.device)
+    rotation_counts["rotations"] += 1
+    acc = _back(r.layout, p, acc)
+    # A replay's result is the graph's own buffer, which the next replay
+    # overwrites: the caller gets a copy even where the layout back is a
+    # view (B 1).
+    return (acc.clone(memory_format=torch.contiguous_format)
+            if graph is not None else acc.contiguous())
+
+
+def _prologue(layout: str, p: TFHEParams, ct: torch.Tensor,
+              testvec: torch.Tensor, theta: int) -> tuple:
+    """The rotation's set-up: the mod switch (to 2N, or to 2kN at k > 1),
+    the test vector's first rotation by X^(-b~), and the move into
+    ``layout``.  Returns the accumulator and the amounts a~.  At k > 1
+    inside the span ``rotation.ext_blocks``, then B*k rows counted under
+    ``rotation.block_rows`` (K8's or K5's batch with the blocks folded
+    in)."""
+    n_lwe, k, n = p.lwe_n, p.poly_extend_factor, p.n
+    lead = ct.shape[:-1]
+    if k == 1:
+        b_tilda = 2 * n - mod_switch_2n(ct[..., n_lwe], p, theta)
+        acc = monomial_mul(testvec.expand(lead + (2, n)), b_tilda[..., None])
+        return _into(layout, p, acc,
+                     mod_switch_2n(ct[..., :n_lwe], p, theta))
+    big = 2 * k * n
+    with span("rotation.ext_blocks", ct.device):
+        b_tilda = big - mod_switch_general(ct[..., n_lwe], big)
+        acc = monomial_mul_blocks(testvec.expand(lead + (k, 2, n)), b_tilda,
+                                  k)
+        start = _into(layout, p, acc, mod_switch_general(ct[..., :n_lwe],
+                                                         big))
+    count("rotation.block_rows", b_tilda.numel() * k)
+    return start
+
+
+def _into(layout: str, p: TFHEParams, acc: torch.Tensor,
+          a_tilda: torch.Tensor) -> tuple:
+    """The accumulator (B, [k,] 2, N) and amounts (B, n_lwe) in
+    ``layout``'s forms, contiguous: "col" (2, k*N, B), block r in rows
+    [rN, (r+1)N); "row" (2, B, k*N), block r in columns [rN, (r+1)N); the
+    amounts (n_lwe, B).  The batch layout keeps both as they are."""
+    if layout == "batch":
+        return acc, a_tilda
+    b, k, n = a_tilda.shape[0], p.poly_extend_factor, p.n
+    acc = acc.reshape(b, k, 2, n)
+    if layout == "col":
+        acc = acc.permute(2, 1, 3, 0).reshape(2, k * n, b)
+    else:
+        acc = acc.permute(2, 0, 1, 3).reshape(2, b, k * n)
+    return acc.contiguous(), a_tilda.t().contiguous()
+
+
+def _back(layout: str, p: TFHEParams, acc: torch.Tensor) -> torch.Tensor:
+    """``layout``'s accumulator back in the batch layout (B, [k,] 2, N), a
+    view."""
+    if layout == "batch":
+        return acc
+    k, n = p.poly_extend_factor, p.n
+    if layout == "col":
+        acc = acc.reshape(2, k, n, acc.shape[2]).permute(3, 1, 0, 2)
+    else:
+        acc = acc.reshape(2, acc.shape[1], k, n).permute(1, 2, 0, 3)
+    return acc if k > 1 else acc[:, 0]
+
+
+def takes_graph(device: torch.device, b: int, plain: bool = False) -> bool:
+    """Whether a graphed route replays its steps from a CUDA graph: the
+    kernels on a card (not their plain versions) at a batch of at most
+    cuda_t.SMALL_BATCH_MAX, where the host's two launches a step take
+    longer than the card's two kernels (PERF.md, §5)."""
+    return not plain and device.type == "cuda" and b <= SMALL_BATCH_MAX
+
+
+# id(bands) -> (a weak reference to them, {(route, card, batch, profile):
+# _StepGraph}).  The reference's callback drops the entry when the bands
+# go, so that no replay outlives the bands it reads and freeing a key
+# frees its graphs.
+_graphs: dict = {}
+
+
+def _graphs_of(bands: torch.Tensor) -> dict:
+    """The step graphs captured over ``bands``."""
+    entry = _graphs.get(id(bands))
+    if entry is None or entry[0]() is not bands:
+        key = id(bands)
+        entry = _graphs[key] = (
+            weakref.ref(bands, lambda _, key=key: _graphs.pop(key, None)), {})
+    return entry[1]
+
+
+class _StepGraph:
+    """A route's n_lwe steps at one batch, captured once in a CUDA graph:
+    the same launches with the same arguments, in the same order, as its
+    eager steps.
+
+    The graph reads its own input buffers, ``acc`` (the route's layout)
+    and ``a_tilda`` (n_lwe, B), which :meth:`run` fills, and writes ``out``
+    in its private pool, which also holds the steps' digits and
+    accumulators (a few of each, reused within the capture).  It holds no
+    reference to the bands: :func:`_graphs_of` drops it with them.  A
+    replay runs on the caller's current stream; calls on two streams must
+    not overlap, since they share the buffers."""
+
+    def __init__(self, route: Route, p: TFHEParams, bands: torch.Tensor,
+                 b: int, device: torch.device):
+        kn = p.poly_extend_factor * p.n
+        self.acc = torch.zeros((2, kn, b) if route.layout == "col"
+                               else (2, b, kn), dtype=TORUS, device=device)
+        self.a_tilda = torch.zeros((p.lwe_n, b), dtype=torch.int32,
+                                   device=device)
+        before = dict(launch_counts)
+        self.graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.device(device), torch.cuda.graph(
+                    self.graph, stream=torch.cuda.Stream(device)):
+                self.out = route.steps(p, bands, self.acc, self.a_tilda,
+                                       route.kernels)
+        finally:
+            # The capture ran nothing: its launches count at each replay.
+            self.launches = {name: launch_counts[name] - n
+                             for name, n in before.items()
+                             if launch_counts[name] != n}
+            launch_counts.update(before)
+
+    def run(self, acc: torch.Tensor, a_tilda: torch.Tensor) -> torch.Tensor:
+        """The steps from ``acc`` with amounts ``a_tilda`` (any strides);
+        returns ``out``, which the next replay overwrites.  While the
+        recorder is on, ``launch.host_ns`` adds the replay's host time."""
+        self.acc.copy_(acc)
+        self.a_tilda.copy_(a_tilda)
+        t0 = time.perf_counter_ns() if tracing.active else 0
+        self.graph.replay()
+        if t0:
+            count("launch.host_ns", time.perf_counter_ns() - t0)
+        for name, n in self.launches.items():
+            launch_counts[name] += n
+        return self.out
+
+
+# ---------------------------------------------------------------------------
+# The routes' steps.
+# ---------------------------------------------------------------------------
+
+# Each is ``Route.steps``: steps(p, bands, acc, a_tilda, ops) -> acc.
+
+def _cmux_steps(p, bsk_bands, acc, a_tilda, ops):
+    """blind_rotate's: a gather rotation and :func:`.extprod.cmux`, a step
+    per amount (the last axis of ``a_tilda``)."""
+    for i in range(a_tilda.shape[-1]):
+        rotated = monomial_mul(acc, a_tilda[..., i, None])
+        acc = cmux(p, bsk_bands[i], acc, rotated)
+    return acc
+
+
+def _blocks_cmux_steps(p, bsk_bands, acc, a_tilda, ops):
+    """blind_rotate_extended's: the k blocks' rotation, and a CMUX that
+    contracts every block against the same D band."""
+    k = p.poly_extend_factor
+    for i in range(p.lwe_n):
+        rotated = monomial_mul_blocks(acc, a_tilda[..., i], k)
+        # block-wise CMUX: k is one more batch axis of the contraction
+        acc = acc + external_product(p, bsk_bands[i], rotated - acc)
+    return acc
+
+
+def _block_portable_steps(p, bsk_bands, acc, a_tilda, ops):
+    """blind_rotate_block_portable's: a block's bs rotations' differences
+    decomposed together and contracted in one Toeplitz product of bs*2L
+    rows; the ragged tail per bit (:func:`_cmux_steps`)."""
+    bs, l2 = p.block_size, 2 * p.l
+    full = p.lwe_n // bs
+    lead = acc.shape[:-2]
+    a_blk = a_tilda[..., :full * bs].reshape(lead + (full, bs))
+    band_blk = bsk_bands[:full * bs].reshape(full, bs * l2, 2, 2 * p.n)
+    for i in range(full):
+        rotated = monomial_mul(acc[..., None, :, :], a_blk[..., i, :, None])
+        diff = rotated - acc[..., None, :, :]                  # (...,bs,2,N)
+        digits = gadget_decompose(diff, p).reshape(lead + (bs * l2, p.n))
+        acc = acc + negacyclic_extprod_toeplitz(digits, band_blk[i])
+    return _cmux_steps(p, bsk_bands[full * bs:], acc,
+                       a_tilda[..., full * bs:], ops)
+
+
+def _bit_steps(p, bands, acc, a_tilda, ops):
+    """A step per amount (a row of ``a_tilda``): ``ops`` rotate and
+    decompose, then contract the digits with the step's band and add the
+    accumulator.  blind_rotate_t's K1 + K2 on (2, N, B); K7 at bs = 1 + K8
+    on (2, B, N), blind_rotate_tpu's and the block rotation's ragged
+    tail."""
+    rotdec, contract = ops
+    nd, lo = p.digit_limbs, band_limb_drop(p)
+    for i in range(a_tilda.shape[0]):
+        # The digits stay bound until the next step's are made: passed
+        # inline, a replayed 128bit rotation at B 1 ran 1.2% slower on an
+        # H100 (PERF.md §6).
+        digits = rotdec(p, acc, a_tilda[i])
+        acc = contract(digits, bands[i], acc, nd, lo)
+    return acc
+
+
+def _ext_t_steps(p, bands, acc, a_tilda, ops):
+    """blind_rotate_extended_t's, on the (2, k*N, B) accumulator: K4, then
+    K5, every block against the step's band."""
+    rotdec, contract = ops
+    k, nd, lo = p.poly_extend_factor, p.digit_limbs, band_limb_drop(p)
+    for i in range(p.lwe_n):
+        digits = rotdec(p, acc, a_tilda[i])
+        acc = contract(digits, bands[i], acc, k, nd, lo)
+    return acc
+
+
+def _ext_rm_steps(p, bands, acc, a_tilda, ops):
+    """blind_rotate_extended_rm's, on the (2, B, k*N) accumulator: K6, then
+    K8 with the k blocks folded into its batch."""
+    rotdec, contract = ops
+    k, n, nd, lo = p.poly_extend_factor, p.n, p.digit_limbs, band_limb_drop(p)
+    b = acc.shape[1]
+    for i in range(p.lwe_n):
+        digits = rotdec(p, acc, a_tilda[i])
+        acc = contract(digits.view(b * k, -1), bands[i],
+                       acc.view(2, b * k, n), nd, lo).view(2, b, k * n)
+    return acc
+
+
+def _block_steps(p, bands, acc, a_tilda, ops):
+    """blind_rotate_block's, on the (2, B, N) accumulator: K7 by a block's
+    bs amounts, then K8 against the block's bands (:func:`block_bands`);
+    the ragged tail per bit (:func:`_bit_steps`)."""
+    rotdec, contract = ops
+    bs, nd, lo = p.block_size, p.digit_limbs, band_limb_drop(p)
+    full = p.lwe_n // bs
+    a_blk = a_tilda[:full * bs].view(full, bs, acc.shape[1])
+    band_blk = block_bands(p, bands)
+    for i in range(full):
+        digits = rotdec(p, acc, a_blk[i])
+        acc = contract(digits, band_blk[i], acc, nd, lo)
+    return _bit_steps(p, bands[full * bs:], acc, a_tilda[full * bs:], ops)
+
+
+def _tpu_steps(p, bands, acc, a_tilda, ops):
+    """blind_rotate_tpu's, on the (2, B, N) accumulator: K3 where
+    :data:`FUSED_STEP` is set and the digits fit int8, else
+    :func:`_bit_steps` with K7 and K8."""
+    step, *pair = ops
+    int8_ok = 2 * p.l * p.n * min(p.half_bg, 128) * 128 < 1 << 31
+    if not (FUSED_STEP and p.digits_fit_int8 and int8_ok):
+        return _bit_steps(p, bands, acc, a_tilda, pair)
+    for i in range(p.lwe_n):
+        acc = step(p, acc, a_tilda[i], bands[i])
+    return acc
+
+
+# The nine rotations.  Only blind_rotate_t is graphed (see the module
+# docstring); marking another route is a measurement on the card first.
+ROUTES = {
+    "blind_rotate": Route("batch", _cmux_steps),
+    "blind_rotate_extended": Route("batch", _blocks_cmux_steps),
+    "blind_rotate_block_portable": Route("batch", _block_portable_steps),
+    "blind_rotate_t": Route(
+        "col", _bit_steps, (rotate_decompose_t, extprod_t),
+        (rotate_decompose_t_ref, extprod_t_ref), graphed=True),
+    "blind_rotate_extended_t": Route(
+        "col", _ext_t_steps, (rotate_decompose_ext_t, extprod_ext_t),
+        (rotate_decompose_ext_t_ref, extprod_ext_t_ref)),
+    "blind_rotate_pipe": Route(
+        "col", pipe_steps, (rotate_decompose_t, pipe_step),
+        (rotate_decompose_t_ref, pipe_step_ref)),
+    "blind_rotate_extended_rm": Route(
+        "row", _ext_rm_steps, (rotate_decompose_ext, extprod),
+        (rotate_decompose_ext_ref, extprod_ref)),
+    "blind_rotate_block": Route(
+        "row", _block_steps, (rotate_decompose, extprod),
+        (rotate_decompose_ref, extprod_ref)),
+    "blind_rotate_tpu": Route(
+        "row", _tpu_steps, (fused_rotate_step, rotate_decompose, extprod),
+        (fused_rotate_step_ref, rotate_decompose_ref, extprod_ref)),
+}
+
+
+# ---------------------------------------------------------------------------
+# The nine rotations by name.
+# ---------------------------------------------------------------------------
+
 def blind_rotate(p: TFHEParams, bsk_bands: torch.Tensor, ct: torch.Tensor,
                  testvec: torch.Tensor, theta: int = 0) -> torch.Tensor:
     """Blind-rotate a batch of LWE ciphertexts, portable path
@@ -136,15 +503,7 @@ def blind_rotate(p: TFHEParams, bsk_bands: torch.Tensor, ct: torch.Tensor,
     theta:     coarse mod-switch exponent for many-LUT extraction.
     Returns (..., 2, N) int32 TRLWE accumulators.
     """
-    n_lwe = p.lwe_n
-    lead = ct.shape[:-1]
-    b_tilda = 2 * p.n - mod_switch_2n(ct[..., n_lwe], p, theta)    # (...,)
-    acc = monomial_mul(testvec.expand(lead + (2, p.n)), b_tilda[..., None])
-    a_tilda = mod_switch_2n(ct[..., :n_lwe], p, theta)          # (..., n_lwe)
-    for i in range(n_lwe):
-        rotated = monomial_mul(acc, a_tilda[..., i, None])
-        acc = cmux(p, bsk_bands[i], acc, rotated)
-    return acc
+    return rotate("blind_rotate", p, bsk_bands, ct, testvec, theta)
 
 
 def blind_rotate_extended(p: TFHEParams, bsk_bands: torch.Tensor,
@@ -161,18 +520,7 @@ def blind_rotate_extended(p: TFHEParams, bsk_bands: torch.Tensor,
     lut_blocks: (k, 2, N) or (..., k, 2, N) int32 trivial TRLWE blocks.
     Returns (..., k, 2, N); the bootstrap reads block 0 at index 0.
     """
-    n_lwe, k = p.lwe_n, p.poly_extend_factor
-    big = 2 * k * p.n
-    lead = ct.shape[:-1]
-    b_tilda = big - mod_switch_general(ct[..., n_lwe], big)
-    acc = monomial_mul_blocks(lut_blocks.expand(lead + (k, 2, p.n)),
-                              b_tilda, k)
-    a_tilda = mod_switch_general(ct[..., :n_lwe], big)         # (..., n_lwe)
-    for i in range(n_lwe):
-        rotated = monomial_mul_blocks(acc, a_tilda[..., i], k)
-        # block-wise CMUX: k is one more batch axis of the contraction
-        acc = acc + external_product(p, bsk_bands[i], rotated - acc)
-    return acc
+    return rotate("blind_rotate_extended", p, bsk_bands, ct, lut_blocks)
 
 
 def blind_rotate_block_portable(p: TFHEParams, bsk_bands: torch.Tensor,
@@ -190,29 +538,13 @@ def blind_rotate_block_portable(p: TFHEParams, bsk_bands: torch.Tensor,
     ct:        (..., n_lwe+1) int32 words;  testvec: (2, N) or (..., 2, N).
     Returns (..., 2, N) int32 TRLWE accumulators.
     """
-    bs, l2 = p.block_size, 2 * p.l
-    full, rem = divmod(p.lwe_n, bs)
-    lead = ct.shape[:-1]
-    b_tilda = 2 * p.n - mod_switch_2n(ct[..., p.lwe_n], p)
-    acc = monomial_mul(testvec.expand(lead + (2, p.n)), b_tilda[..., None])
-    a_tilda = mod_switch_2n(ct[..., :p.lwe_n], p)              # (..., n_lwe)
-    a_blk = a_tilda[..., :full * bs].reshape(lead + (full, bs))
-    band_blk = bsk_bands[:full * bs].reshape(full, bs * l2, 2, 2 * p.n)
-    for i in range(full):
-        rotated = monomial_mul(acc[..., None, :, :], a_blk[..., i, :, None])
-        diff = rotated - acc[..., None, :, :]                  # (...,bs,2,N)
-        digits = gadget_decompose(diff, p).reshape(lead + (bs * l2, p.n))
-        acc = acc + negacyclic_extprod_toeplitz(digits, band_blk[i])
-    for idx in range(full * bs, full * bs + rem):      # ragged tail, per bit
-        rotated = monomial_mul(acc, a_tilda[..., idx, None])
-        acc = cmux(p, bsk_bands[idx], acc, rotated)
-    return acc
+    return rotate("blind_rotate_block_portable", p, bsk_bands, ct, testvec)
 
 
 def blind_rotate_t(p: TFHEParams, bands: torch.Tensor, ct: torch.Tensor,
                    testvec: torch.Tensor, theta: int = 0,
                    plain: bool = False) -> torch.Tensor:
-    """Blind-rotate a batch of LWE ciphertexts.
+    """Blind-rotate a batch of LWE ciphertexts: per step K1, then K2.
 
     bands:   (n_lwe, 2, 2L, 2N) int32 K2 bands (cuda_t.pack_bsk_band_t).
     ct:      (B, n_lwe+1) int32 words.
@@ -226,154 +558,25 @@ def blind_rotate_t(p: TFHEParams, bands: torch.Tensor, ct: torch.Tensor,
     the first, eager, rotation at the batch; the mod switch, the test
     vector's first rotation and the layouts stay eager.
     """
-    rotate_decompose = rotate_decompose_t_ref if plain else rotate_decompose_t
-    extprod = extprod_t_ref if plain else extprod_t
-    n_lwe = p.lwe_n
-    b = ct.shape[0]
-    b_tilda = 2 * p.n - mod_switch_2n(ct[:, n_lwe], p, theta)      # (B,)
-    tv = testvec.expand(b, 2, p.n)
-    acc = monomial_mul(tv, b_tilda[:, None]).permute(1, 2, 0)      # (2, N, B)
-    a_tilda = mod_switch_2n(ct[:, :n_lwe], p, theta).t()           # (n_lwe, B)
-    graphed = takes_graph(ct.device, b, plain)
-    graphs = _graphs_of(bands) if graphed else {}
-    shape = _graph_shape(p, b, ct.device)
-    if shape in graphs:
-        out = graphs[shape].run(acc, a_tilda)
-        rotation_counts["replayed"] += 1
-    else:
-        acc = _steps(p, bands, acc.contiguous(), a_tilda.contiguous(),
-                     rotate_decompose, extprod)
-        out = acc.permute(2, 0, 1).contiguous()                    # (B, 2, N)
-        if graphed:
-            # The eager rotation was the kernels' first use at this batch
-            # (their first launches, attribute calls and K2's shape rule),
-            # so the capture meets none of them.
-            graphs[shape] = _StepGraph(p, bands, b, ct.device)
-    rotation_counts["rotations"] += 1
-    return out
-
-
-def _steps(p: TFHEParams, bands: torch.Tensor, acc: torch.Tensor,
-           a_tilda: torch.Tensor, rotate_decompose=rotate_decompose_t,
-           extprod=extprod_t) -> torch.Tensor:
-    """blind_rotate_t's n_lwe steps on the (2, N, B) accumulator: K1, then
-    K2 with the step's band."""
-    nd, lo = p.digit_limbs, band_limb_drop(p)
-    for i in range(p.lwe_n):
-        digits = rotate_decompose(p, acc, a_tilda[i])
-        acc = extprod(digits, bands[i], acc, nd, lo)
-    return acc
-
-
-def takes_graph(device: torch.device, b: int, plain: bool = False) -> bool:
-    """Whether blind_rotate_t replays its steps from a CUDA graph: the
-    kernels on a card (not their plain versions) at a batch of at most
-    cuda_t.SMALL_BATCH_MAX, where the host's two launches a step take
-    longer than the card's two kernels (PERF.md, §5)."""
-    return not plain and device.type == "cuda" and b <= SMALL_BATCH_MAX
-
-
-# id(bands) -> (a weak reference to them, {_graph_shape: _StepGraph}).  The
-# reference's callback drops the entry when the bands go, so that no replay
-# outlives the bands it reads and freeing a key frees its graphs.
-_graphs: dict = {}
-
-
-def _graphs_of(bands: torch.Tensor) -> dict:
-    """The step graphs captured over ``bands``."""
-    entry = _graphs.get(id(bands))
-    if entry is None or entry[0]() is not bands:
-        key = id(bands)
-        entry = _graphs[key] = (
-            weakref.ref(bands, lambda _, key=key: _graphs.pop(key, None)), {})
-    return entry[1]
-
-
-def _graph_shape(p: TFHEParams, b: int, device: torch.device) -> tuple:
-    """What a step graph's launches depend on, besides its bands."""
-    return (device.index, b, p.n, 2 * p.l, p.digit_limbs, band_limb_drop(p),
-            p.lwe_n, p.bgbit, p.decomposition_offset)
-
-
-class _StepGraph:
-    """blind_rotate_t's n_lwe steps at one batch, captured once in a CUDA
-    graph: the same K1 and K2 launches with the same arguments, in the same
-    order, as the eager loop (:func:`_steps`).
-
-    The graph reads its own input buffers, ``acc`` (2, N, B) and
-    ``a_tilda`` (n_lwe, B), which :meth:`run` fills, and writes ``out`` in
-    its private pool, which also holds the steps' digits and accumulators
-    (a few of each, reused within the capture).  It holds no reference to
-    the bands: :func:`_graphs_of` drops it with them.  A replay runs on the
-    caller's current stream; calls on two streams must not overlap, since
-    they share the buffers."""
-
-    def __init__(self, p: TFHEParams, bands: torch.Tensor, b: int,
-                 device: torch.device):
-        self.acc = torch.zeros((2, p.n, b), dtype=TORUS, device=device)
-        self.a_tilda = torch.zeros((p.lwe_n, b), dtype=torch.int32,
-                                   device=device)
-        before = dict(launch_counts)
-        self.graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.device(device), torch.cuda.graph(
-                    self.graph, stream=torch.cuda.Stream(device)):
-                self.out = _steps(p, bands, self.acc, self.a_tilda)
-        finally:
-            # The capture ran nothing: its launches count at each replay.
-            self.launches = {name: launch_counts[name] - n
-                             for name, n in before.items()
-                             if launch_counts[name] != n}
-            launch_counts.update(before)
-
-    def run(self, acc: torch.Tensor, a_tilda: torch.Tensor) -> torch.Tensor:
-        """The steps from ``acc`` (2, N, B) with amounts ``a_tilda``
-        (n_lwe, B), any strides; returns a new (B, 2, N) tensor (never a
-        view of ``out``, which the next replay overwrites).  While the
-        recorder is on, ``launch.host_ns`` adds the replay's host time."""
-        self.acc.copy_(acc)
-        self.a_tilda.copy_(a_tilda)
-        t0 = time.perf_counter_ns() if tracing.active else 0
-        self.graph.replay()
-        if t0:
-            count("launch.host_ns", time.perf_counter_ns() - t0)
-        for name, n in self.launches.items():
-            launch_counts[name] += n
-        return self.out.permute(2, 0, 1).clone(
-            memory_format=torch.contiguous_format)
+    return rotate("blind_rotate_t", p, bands, ct, testvec, theta, plain)
 
 
 def blind_rotate_extended_t(p: TFHEParams, bands: torch.Tensor,
                             ct: torch.Tensor, lut_blocks: torch.Tensor,
                             plain: bool = False) -> torch.Tensor:
     """Blind rotation over an extended look-up table of size k*N
-    (``go_tfhe_tpu/ops/blindrotate.py:221-255``).
+    (``go_tfhe_tpu/ops/blindrotate.py:221-255``): per step K4 rotates and
+    decomposes the (2, k*N, B) big accumulator and K5 contracts every
+    block against the same band.
 
-    bands:      (n_lwe, 2, 2L, 2N) int32 K2 bands; every block contracts
-                against the same band.
+    bands:      (n_lwe, 2, 2L, 2N) int32 K2 bands.
     ct:         (B, n_lwe+1) int32 words.
     lut_blocks: (k, 2, N) or (B, k, 2, N) int32 trivial TRLWE blocks.
     plain:      run the kernels' plain versions on any device.
     Returns (B, k, 2, N); the bootstrap reads block 0 at index 0.
     """
-    rotate_decompose = (rotate_decompose_ext_t_ref if plain
-                        else rotate_decompose_ext_t)
-    extprod = extprod_ext_t_ref if plain else extprod_ext_t
-    n_lwe, k, n, nd = p.lwe_n, p.poly_extend_factor, p.n, p.digit_limbs
-    lo = band_limb_drop(p)
-    big = 2 * k * n
-    b = ct.shape[0]
-    with span("rotation.ext_blocks", ct.device):
-        b_tilda = big - mod_switch_general(ct[:, n_lwe], big)       # (B,)
-        acc = monomial_mul_blocks(lut_blocks.expand(b, k, 2, n), b_tilda, k)
-        # (B, k, 2, N) -> (2, k*N, B): block r in rows [rN, (r+1)N)
-        acc = acc.permute(2, 1, 3, 0).reshape(2, k * n, b).contiguous()
-        a_tilda = mod_switch_general(ct[:, :n_lwe], big).t().contiguous()
-    count("rotation.block_rows", b * k)
-    for i in range(n_lwe):
-        digits = rotate_decompose(p, acc, a_tilda[i])
-        acc = extprod(digits, bands[i], acc, k, nd, lo)
-    return acc.reshape(2, k, n, b).permute(3, 1, 0, 2).contiguous()
+    return rotate("blind_rotate_extended_t", p, bands, ct, lut_blocks,
+                  plain=plain)
 
 
 def blind_rotate_extended_rm(p: TFHEParams, bands: torch.Tensor,
@@ -392,25 +595,8 @@ def blind_rotate_extended_rm(p: TFHEParams, bands: torch.Tensor,
     plain:      run the kernels' plain versions on any device.
     Returns (B, k, 2, N); the bootstrap reads block 0 at index 0.
     """
-    rotate_decompose_e = (rotate_decompose_ext_ref if plain
-                          else rotate_decompose_ext)
-    contract = extprod_ref if plain else extprod
-    n_lwe, k, n, nd = p.lwe_n, p.poly_extend_factor, p.n, p.digit_limbs
-    lo = band_limb_drop(p)
-    big = 2 * k * n
-    b = ct.shape[0]
-    with span("rotation.ext_blocks", ct.device):
-        b_tilda = big - mod_switch_general(ct[:, n_lwe], big)       # (B,)
-        acc = monomial_mul_blocks(lut_blocks.expand(b, k, 2, n), b_tilda, k)
-        # (B, k, 2, N) -> (2, B, k*N): block r in columns [rN, (r+1)N)
-        acc = acc.permute(2, 0, 1, 3).reshape(2, b, k * n).contiguous()
-        a_tilda = mod_switch_general(ct[:, :n_lwe], big).t().contiguous()
-    count("rotation.block_rows", b * k)
-    for i in range(n_lwe):
-        digits = rotate_decompose_e(p, acc, a_tilda[i])
-        acc = contract(digits.view(b * k, -1), bands[i],
-                       acc.view(2, b * k, n), nd, lo).view(2, b, k * n)
-    return acc.view(2, b, k, n).permute(1, 2, 0, 3).contiguous()
+    return rotate("blind_rotate_extended_rm", p, bands, ct, lut_blocks,
+                  plain=plain)
 
 
 def block_bands(p: TFHEParams, bands: torch.Tensor) -> torch.Tensor:
@@ -452,25 +638,7 @@ def blind_rotate_block(p: TFHEParams, bands: torch.Tensor, ct: torch.Tensor,
     plain:   run the kernels' plain versions on any device.
     Returns (B, 2, N) int32 TRLWE accumulators.
     """
-    rotate = rotate_decompose_ref if plain else rotate_decompose
-    contract = extprod_ref if plain else extprod
-    n_lwe, bs, nd = p.lwe_n, p.block_size, p.digit_limbs
-    lo = band_limb_drop(p)
-    full, rem = divmod(n_lwe, bs)
-    b = ct.shape[0]
-    b_tilda = 2 * p.n - mod_switch_2n(ct[:, n_lwe], p)             # (B,)
-    acc = monomial_mul(testvec.expand(b, 2, p.n), b_tilda[:, None])
-    acc = acc.transpose(0, 1).contiguous()                          # (2, B, N)
-    a_tilda = mod_switch_2n(ct[:, :n_lwe], p).t().contiguous()      # (n_lwe, B)
-    a_blk = a_tilda[:full * bs].view(full, bs, b)
-    band_blk = block_bands(p, bands)
-    for i in range(full):
-        digits = rotate(p, acc, a_blk[i])
-        acc = contract(digits, band_blk[i], acc, nd, lo)
-    for idx in range(full * bs, n_lwe):                # ragged tail, per bit
-        digits = rotate(p, acc, a_tilda[idx])
-        acc = contract(digits, bands[idx], acc, nd, lo)
-    return acc.transpose(0, 1).contiguous()                         # (B, 2, N)
+    return rotate("blind_rotate_block", p, bands, ct, testvec, plain=plain)
 
 
 def blind_rotate_tpu(p: TFHEParams, bands: torch.Tensor, ct: torch.Tensor,
@@ -490,21 +658,4 @@ def blind_rotate_tpu(p: TFHEParams, bands: torch.Tensor, ct: torch.Tensor,
     plain:   run the kernels' plain versions on any device.
     Returns (B, 2, N) int32 TRLWE accumulators.
     """
-    step = fused_rotate_step_ref if plain else fused_rotate_step
-    rotate = rotate_decompose_ref if plain else rotate_decompose
-    contract = extprod_ref if plain else extprod
-    n_lwe, nd, lo = p.lwe_n, p.digit_limbs, band_limb_drop(p)
-    int8_ok = 2 * p.l * p.n * min(p.half_bg, 128) * 128 < 1 << 31
-    fused = FUSED_STEP and p.digits_fit_int8 and int8_ok
-    b = ct.shape[0]
-    b_tilda = 2 * p.n - mod_switch_2n(ct[:, n_lwe], p)             # (B,)
-    acc = monomial_mul(testvec.expand(b, 2, p.n), b_tilda[:, None])
-    acc = acc.transpose(0, 1).contiguous()                          # (2, B, N)
-    a_tilda = mod_switch_2n(ct[:, :n_lwe], p).t().contiguous()     # (n_lwe, B)
-    for i in range(n_lwe):
-        if fused:
-            acc = step(p, acc, a_tilda[i], bands[i])
-        else:
-            acc = contract(rotate(p, acc, a_tilda[i]), bands[i], acc, nd,
-                           lo)
-    return acc.transpose(0, 1).contiguous()                         # (B, 2, N)
+    return rotate("blind_rotate_tpu", p, bands, ct, testvec, plain=plain)

@@ -7,7 +7,9 @@ Layouts (K1/K2's transposed ones, ops/cuda_t.py; words as int32):
   band    (2, 2L, 2N) int32   — the port's one band layout
 
 One call contracts half X's digits (K2's arithmetic) and rotates and
-decomposes half Y (K1's); the two halves share no data.  The TPU kernel's
+decomposes half Y (K1's); the two halves share no data.  :func:`pipe_steps`
+is the rotation's steps, the route ``blind_rotate_pipe`` of
+ops/blindrotate.ROUTES.  The TPU kernel's
 ``rot_first`` and ``interleave`` only order instructions for Mosaic and
 change no value; they are not ported.  Single-limb digits only
 (pallas_pipe.py:183).
@@ -26,12 +28,10 @@ import torch
 
 from ..params import TFHEParams
 from ..utils.torus import TORUS
-from . import _build
-from .blindrotate import mod_switch_2n
+# blindrotate as a module (for its rotate): it imports pipe_steps from here.
+from . import _build, blindrotate
 from .cuda_t import (SMEM_LIMIT, _check, band_limb_drop, check_tile,
-                     extprod_t_ref, launch, rotate_decompose_t,
-                     rotate_decompose_t_ref)
-from .rotate import monomial_mul
+                     extprod_t_ref, launch, rotate_decompose_t_ref)
 
 # extprod_tile.cuh's output tile (TN coefficients x TB ciphertexts) and its
 # dynamic shared memory at one digit limb (extprod_smem_bytes<1>(); pipe.cu
@@ -141,12 +141,12 @@ def pipe_step(p: TFHEParams, digits_x: torch.Tensor, band: torch.Tensor,
     return out_x, dig_y
 
 
-def blind_rotate_pipe(p: TFHEParams, bands: torch.Tensor, ct: torch.Tensor,
-                      testvec: torch.Tensor, plain: bool = False
-                      ) -> torch.Tensor:
-    """Blind rotation with the batch in two halves half a step out of
-    phase (``go_tfhe_tpu/ops/pallas_pipe.py:236-287``), bit-exact with
-    ops/blindrotate.blind_rotate_t:
+def pipe_steps(p: TFHEParams, bands: torch.Tensor, acc: torch.Tensor,
+               a_tilda: torch.Tensor, ops: tuple) -> torch.Tensor:
+    """blind_rotate_pipe's steps on the (2, N, B) accumulator, with the
+    amounts ``a_tilda`` (n_lwe, B) and ``ops`` K1 and K9 (or their plain
+    versions): the batch in halves A (ceil(B/2)) and B (floor(B/2)), half
+    a step out of phase (``go_tfhe_tpu/ops/pallas_pipe.py:236-287``):
 
         prologue : dig_A = K1(A, step 0)
         step i   : (A, dig_B) = K9(dig_A . BSK_i, rotate B for step i)
@@ -154,9 +154,29 @@ def blind_rotate_pipe(p: TFHEParams, bands: torch.Tensor, ct: torch.Tensor,
 
     one K1 launch and 2*lwe_n K9 launches.  The last call rotates half A
     by amount 0 for a step that does not exist (the JAX package's extra
-    zero column, pallas_pipe.py:267); its digits are discarded.  An odd
-    batch splits into halves of ceil(B/2) and floor(B/2), each masked by
-    the kernel; a ciphertext's result does not depend on the split.
+    zero column, pallas_pipe.py:267); its digits are discarded."""
+    rotate, step = ops
+    b2 = (acc.shape[2] + 1) // 2
+    acc_a = acc[:, :, :b2].contiguous()
+    acc_b = acc[:, :, b2:].contiguous()
+    amt_a = torch.cat([a_tilda[:, :b2], a_tilda.new_zeros((1, b2))])
+    amt_b = a_tilda[:, b2:].contiguous()                      # (n_lwe, B - b2)
+    del acc, a_tilda          # the halves are copies: free the whole batch
+    dig_a = rotate(p, acc_a, amt_a[0])
+    for i in range(p.lwe_n):
+        acc_a, dig_b = step(p, dig_a, bands[i], acc_a, acc_b, amt_b[i])
+        acc_b, dig_a = step(p, dig_b, bands[i], acc_b, acc_a, amt_a[i + 1])
+    return torch.cat([acc_a, acc_b], dim=2)
+
+
+def blind_rotate_pipe(p: TFHEParams, bands: torch.Tensor, ct: torch.Tensor,
+                      testvec: torch.Tensor, plain: bool = False
+                      ) -> torch.Tensor:
+    """Blind rotation with the batch in two halves half a step out of
+    phase (:func:`pipe_steps`), bit-exact with
+    ops/blindrotate.blind_rotate_t.  An odd batch splits into halves of
+    ceil(B/2) and floor(B/2), each masked by the kernel; a ciphertext's
+    result does not depend on the split.
 
     bands:   (n_lwe, 2, 2L, 2N) int32 K2 bands (cuda_t.pack_bsk_band_t).
     ct:      (B, n_lwe+1) int32 words.
@@ -164,23 +184,5 @@ def blind_rotate_pipe(p: TFHEParams, bands: torch.Tensor, ct: torch.Tensor,
     plain:   run the kernels' plain versions on any device.
     Returns (B, 2, N) int32 TRLWE accumulators.
     """
-    rotate = rotate_decompose_t_ref if plain else rotate_decompose_t
-    step = pipe_step_ref if plain else pipe_step
-    n_lwe = p.lwe_n
-    b = ct.shape[0]
-    b2 = (b + 1) // 2
-    b_tilda = 2 * p.n - mod_switch_2n(ct[:, n_lwe], p)            # (B,)
-    acc = monomial_mul(testvec.expand(b, 2, p.n), b_tilda[:, None])
-    acc = acc.permute(1, 2, 0)                                     # (2, N, B)
-    acc_a = acc[:, :, :b2].contiguous()
-    acc_b = acc[:, :, b2:].contiguous()
-    a_tilda = mod_switch_2n(ct[:, :n_lwe], p).t()                  # (n_lwe, B)
-    amt_a = torch.cat([a_tilda[:, :b2], a_tilda.new_zeros((1, b2))])
-    amt_a = amt_a.contiguous()                                # (n_lwe+1, b2)
-    amt_b = a_tilda[:, b2:].contiguous()
-    dig_a = rotate(p, acc_a, amt_a[0])
-    for i in range(n_lwe):
-        acc_a, dig_b = step(p, dig_a, bands[i], acc_a, acc_b, amt_b[i])
-        acc_b, dig_a = step(p, dig_b, bands[i], acc_b, acc_a, amt_a[i + 1])
-    acc = torch.cat([acc_a, acc_b], dim=2)                         # (2, N, B)
-    return acc.permute(2, 0, 1).contiguous()                       # (B, 2, N)
+    return blindrotate.rotate("blind_rotate_pipe", p, bands, ct, testvec,
+                              plain=plain)

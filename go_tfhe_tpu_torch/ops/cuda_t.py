@@ -64,14 +64,9 @@ _TILE_WIDTHS = (4, 8, 16, 32)
 ROW_SMEM_LIMIT = 49152
 _ROW_THREADS = 256
 
-# Launches by wrapper name.  One key is a sub-count, no kernel of its own:
-# "extprod_t_small" counts the "extprod_t" launches that took K2's
-# small-batch form, so a total of launches leaves it out.
-launch_counts = {"rotate_decompose_t": 0, "extprod_t": 0,
-                 "rotate_decompose_ext_t": 0, "extprod_ext_t": 0,
-                 "rotate_decompose_ext": 0, "rotate_decompose": 0,
-                 "extprod": 0, "fused_rotate_step": 0, "pipe_step": 0,
-                 "extprod_t_small": 0}
+# Launches by wrapper name: utils/tracing.py's always-kept count (its
+# "extprod_t_small" key is a sub-count of "extprod_t").
+launch_counts = tracing.launch_counts
 
 
 def reset_launch_counts() -> None:

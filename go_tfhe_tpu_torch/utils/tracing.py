@@ -37,9 +37,9 @@ span                       covers
                            (``route``, ``batch``, ``key_switch``)
 ``engine.rotation``        the blind rotation: all ``lwe_n`` steps
 ``rotation.ext_blocks``    an extended rotation's set-up (k > 1 only,
-                           both routes): the mod switch at 2kN, the k
-                           blocks' first rotation and the accumulator's
-                           layout for the step kernels
+                           every extended route): the mod switch at 2kN,
+                           the k blocks' first rotation and the
+                           accumulator's layout for the step kernels
 ``engine.sample_extract``  the sample extraction
 ``key_switch``             ``ops.keyswitch.identity_key_switch``
 ``reencrypt``              ``proxyreenc.reencrypt``
@@ -53,7 +53,8 @@ rotation's product contracts in each step (B * k a rotation: K8's or K5's
 batch with the k blocks folded in); ``launch.host_ns``, the host's
 nanoseconds inside ``ops.cuda_t.launch`` (library lookup, device guard,
 stream, the ctypes call).  The program's kernel launches are
-``ops.cuda_t.launch_counts``, always counted; :func:`snapshot` reads them.
+:data:`launch_counts` (``ops.cuda_t.launch_counts``), always counted;
+:func:`snapshot` reads them.
 
 **Always on**, whatever the switch:
 
@@ -63,9 +64,10 @@ stream, the ctypes call).  The program's kernel launches are
   and float32 limb form, the digits, the float32 one-hot, the product),
   read from the tensors; while on, also the ``key_switch`` (``reencrypt``)
   span's attribute ``transient_bytes`` for that call;
-* the rotation counts (``ops.blindrotate.rotation_counts``): the
-  rotations that ``blind_rotate_t`` ran, and of them those whose steps were
-  replayed from a CUDA graph; :func:`reset` zeroes them;
+* the rotation counts, :data:`rotation_counts`
+  (``ops.blindrotate.rotation_counts``): the blind rotations run, and of
+  them those whose steps were replayed from a CUDA graph; :func:`reset`
+  zeroes them;
 * first-run records: the host seconds of each span site's first run in the
   process (``first_run_s``, with ``library.load`` and ``library.nvcc``,
   the kernel library's load and its build, 0 where it was built already),
@@ -102,6 +104,19 @@ _dropped = 0
 _counters: dict = {}
 _peaks: dict = {}
 _first_run: dict = {}        # span site (or library.*) -> host seconds
+# The always-kept counts, which the ops add to: ops.cuda_t.launch_counts
+# and ops.blindrotate.rotation_counts are these objects (the benchmark's
+# readers read them there).
+# Kernel launches by wrapper name (ops.cuda_t.launch).  One key is a
+# sub-count, no kernel of its own: "extprod_t_small" counts the
+# "extprod_t" launches that took K2's small-batch form, so a total of
+# launches leaves it out.
+launch_counts = {"rotate_decompose_t": 0, "extprod_t": 0,
+                 "rotate_decompose_ext_t": 0, "extprod_ext_t": 0,
+                 "rotate_decompose_ext": 0, "rotate_decompose": 0,
+                 "extprod": 0, "fused_rotate_step": 0, "pipe_step": 0,
+                 "extprod_t_small": 0}
+rotation_counts = {"rotations": 0, "replayed": 0}
 # (entry, card index) -> host seconds of its first launch; ops.cuda_t.launch
 # looks its key up on every launch and writes it on the first.
 first_launches: dict = {}
@@ -242,23 +257,20 @@ def reset() -> None:
     """Drop the span records, counters and peaks and zero the rotation
     counts (not the first-run records, which describe the process)."""
     global _dropped
-    from ..ops import blindrotate
     _spans.clear()
     _counters.clear()
     _peaks.clear()
     _dropped = 0
-    blindrotate.rotation_counts.update(
-        dict.fromkeys(blindrotate.rotation_counts, 0))
+    rotation_counts.update(dict.fromkeys(rotation_counts, 0))
 
 
 def snapshot() -> dict:
     """What was recorded since :func:`reset`: ``spans`` (records, oldest
     first, each with ``device_ms``: None off a CUDA device), ``counters``,
-    ``peaks``, ``rotations`` (``ops.blindrotate.rotation_counts``),
-    ``launches`` (``ops.cuda_t.launch_counts`` as they stand),
-    ``first_run_s``, ``first_launch_s`` and ``dropped``.  Waits for the
-    card where a span's end event has not completed."""
-    from ..ops import blindrotate, cuda_t
+    ``peaks``, ``rotations`` (:data:`rotation_counts`), ``launches``
+    (:data:`launch_counts` as they stand), ``first_run_s``,
+    ``first_launch_s`` and ``dropped``.  Waits for the card where a span's
+    end event has not completed."""
     for rec in _spans:
         events = rec.pop("_events", None)
         if events is not None:
@@ -268,8 +280,8 @@ def snapshot() -> dict:
             rec.setdefault("device_ms", None)
     return {"spans": [dict(rec) for rec in _spans],
             "counters": dict(_counters), "peaks": dict(_peaks),
-            "rotations": dict(blindrotate.rotation_counts),
-            "launches": dict(cuda_t.launch_counts),
+            "rotations": dict(rotation_counts),
+            "launches": dict(launch_counts),
             "first_run_s": dict(_first_run),
             "first_launch_s": {f"{entry}@cuda:{index}": s
                                for (entry, index), s

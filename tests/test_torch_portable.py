@@ -319,7 +319,7 @@ def test_route_choice_unchanged():
     kernel rotation, and bootstrap_many refuses an unknown route."""
     for name in ("test_fast", "test_ext2", "test_block"):
         *_, ck = _random_key(params.get_params(name), 90)
-        assert engine._route(ck) not in engine._PORTABLE
+        assert not blindrotate.ROUTES[engine._route(ck)].portable
     *_, ck = _random_key(params.TEST_FAST, 91)
     ct, tv = map(_t, _route_inputs(params.TEST_FAST, 92))
     with pytest.raises(ValueError, match="no route"):

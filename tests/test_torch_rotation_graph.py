@@ -116,18 +116,20 @@ def test_the_reader_reads_nothing_from_a_program_without_the_counter(
 
 class _StandInGraph:
     """A step graph without a card: records what it was made for, and a
-    replay returns a marker (it keeps no reference to the bands, as the
-    real one keeps none)."""
+    replay returns a marker in the route's layout (it keeps no reference
+    to the bands, as the real one keeps none)."""
 
     made = []
 
-    def __init__(self, p, bands, b, device):
-        self.b, self.n = b, p.n
+    def __init__(self, route, p, bands, b, device):
+        assert route is blindrotate.ROUTES["blind_rotate_t"]
+        self.b, self.n, self.n_lwe = b, p.n, p.lwe_n
         self.made.append((p.name, b))
 
     def run(self, acc, a_tilda):
         assert acc.shape == (2, self.n, self.b)
-        return torch.full((self.b, 2, self.n), 7, dtype=torch.int32)
+        assert a_tilda.shape == (self.n_lwe, self.b)
+        return torch.full((2, self.n, self.b), 7, dtype=torch.int32)
 
 
 def test_the_cache_lives_and_dies_with_the_bands(fast, monkeypatch):

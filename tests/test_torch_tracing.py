@@ -4,9 +4,11 @@ gives the span tree of its layers under one call id, on the profiler's
 clock, with the counters and the key switch's transient bytes that the
 profile's shapes give; outputs are the same words either way."""
 
+import ast
 import contextlib
 import dataclasses
 import importlib.util
+import inspect
 import json
 import os
 import threading
@@ -17,7 +19,8 @@ torch = pytest.importorskip("torch")
 
 from go_tfhe_tpu_torch import (cipher, engine, gates, keys, lut,  # noqa: E402
                                params, proxyreenc)
-from go_tfhe_tpu_torch.ops import _build, cuda_t, keyswitch  # noqa: E402
+from go_tfhe_tpu_torch.ops import (_build, blindrotate, cuda_t,  # noqa: E402
+                                   keyswitch)
 from go_tfhe_tpu_torch.utils import profiling, tracing  # noqa: E402
 
 SWITCH_TREE = {"key_switch": "engine.bootstrap",
@@ -380,6 +383,39 @@ def test_first_runs_are_recorded_and_outlive_reset(fast):
                  "engine.sample_extract", "key_switch",
                  "key_switch.limb_form", "key_switch.contract"):
         assert first[name] >= 0.0, name
+
+
+def test_the_always_kept_counts_are_the_recorders_own(monkeypatch):
+    """ops.cuda_t.launch_counts and ops.blindrotate.rotation_counts are
+    the recorder's objects, under the names the benchmark's readers read;
+    reset() zeroes the rotations and keeps the launches."""
+    assert cuda_t.launch_counts is tracing.launch_counts
+    assert blindrotate.rotation_counts is tracing.rotation_counts
+    assert "extprod_t_small" in tracing.launch_counts
+    monkeypatch.setitem(tracing.launch_counts, "extprod_t", 5)
+    monkeypatch.setitem(tracing.rotation_counts, "rotations", 3)
+    monkeypatch.setitem(tracing.rotation_counts, "replayed", 2)
+    snap = tracing.snapshot()
+    assert snap["launches"]["extprod_t"] == 5
+    assert snap["rotations"] == {"rotations": 3, "replayed": 2}
+    tracing.reset()
+    assert blindrotate.rotation_counts == {"rotations": 0, "replayed": 0}
+    assert cuda_t.launch_counts["extprod_t"] == 5
+
+
+def test_the_recorder_imports_nothing_from_ops():
+    """utils/tracing.py sits below the layers it records: no import of
+    go_tfhe_tpu_torch.ops, at the top or inside a function."""
+    for node in ast.walk(ast.parse(inspect.getsource(tracing))):
+        if isinstance(node, ast.ImportFrom):
+            names = ["." * node.level + (node.module or "") + "." + a.name
+                     for a in node.names]
+        elif isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        else:
+            continue
+        for name in names:
+            assert "ops" not in name.split("."), name
 
 
 @pytest.mark.parametrize("on", [False, True])
