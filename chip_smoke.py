@@ -8,8 +8,9 @@ entry points a user calls:
 * the gate bootstrap at ``128bit_fast`` (lwe_n 700, N 1024): keygen on
   the card, ``gates.NAND`` on a batch of 4096 bit pairs through
   ``engine.bootstrap`` (kernels K1 + K2), truth table, phase-noise margin,
-  launch counts, a first, two steady and a one-gate batch, and 32 gates
-  against the plain versions;
+  launch counts, a first, two steady and a one-gate batch (the fused
+  step, K1 inside K2's small form), and 32 gates against the plain
+  versions;
 * ``gates.AND_OR`` (the many-LUT bootstrap) on the same keys, batch 4096:
   both truth tables, margins, launches, 32 pairs against the plain path;
 * programmable bootstrapping with extended look-up tables through
@@ -207,7 +208,9 @@ MESH_COPIES = 4
 # their docstrings name for a real run, and the K1 and K2 launches of each:
 # 8 gate bootstraps (6 gates and MUX's 2) x 700 steps; 7 PBS x 1071; 3 PBS
 # x 1071 + 40 gate bootstraps x 700; 8 many-LUT bootstraps x 700; none.
-# Their batches (4, or uint5's 32 messages) all take K2's small form.
+# Their batches (4, or uint5's 32 messages) all take K2's small form; the
+# batches of 4 take the fused step (K1 inside K2's small form, one launch a
+# step): the last number, the steps of those.
 # Phase 21, the measuring entry points: each run's (label, script, argv,
 # exit code, the kernel launches of the whole run as {kernel: count}, the
 # measuring core whose calls are held against the plain path as (module,
@@ -218,7 +221,7 @@ MESH_COPIES = 4
 # 5 timed ones; torch_bench_ext a first batch and 2 timed ones a profile
 # (its portable batches launch nothing); bench_micro_torch 5 + 2 x 4 + 4
 # gate bootstraps (first batch and timed loop, latency at batch 1 and
-# 128, the 128bit_fast rows; the 4 at batch 1 take K2's small form) and
+# 128, the 128bit_fast rows; the 4 at batch 1 take the fused step) and
 # 3 + 1 uint5 PBS; bench_scaling_torch a
 # warm and 3 timed batches; --selftest-guard stops after its first batch.
 ENTRY_PORTABLE_BATCH = 16
@@ -231,6 +234,16 @@ def _n(name: str) -> int:
 
 def _launches(kernels: tuple, count: int, **more) -> dict:
     return {**dict.fromkeys(kernels, count), **more}
+
+
+def _k1k2(steps: int, small: int = 0, fused: int = 0) -> dict:
+    """blind_rotate_t's launches over ``steps`` steps, ``small`` of them at
+    batches of at most cuda_t.SMALL_BATCH_MAX (K2's small form) and
+    ``fused`` of those at batches of at most cuda_t.FUSED_BATCH_MAX: one
+    launch of the fused step each (counted under ``step_t_small``,
+    ``extprod_t`` and ``extprod_t_small``), the others K1 + K2."""
+    return {"rotate_decompose_t": steps - fused, "extprod_t": steps,
+            "extprod_t_small": small, "step_t_small": fused}
 
 
 def entry_runs() -> tuple:
@@ -271,20 +284,21 @@ def entry_runs() -> tuple:
          _launches(K6K8, 6 * _n("uint8")),
          ("torch_bench_ext", "accuracy", "plus_one")),
         ("bench_micro", "bench_micro_torch.py", [], 0,
-         _launches(K1K2, 17 * exact + 4 * _n("uint5"),
-                   extprod_t_small=4 * exact), None),
+         _k1k2(17 * exact + 4 * _n("uint5"), small=4 * exact,
+               fused=4 * exact), None),
         ("bench_scaling", "bench_scaling_torch.py", [], 0,
          _launches(K1K2, 4 * exact), None),
     )
 
 
 EXAMPLES = (
-    ("torch_simple_gates", ["--profile", "128bit_fast"], 8 * 700),
-    ("torch_programmable_bootstrap", ["--profile", "uint5"], 7 * 1071),
+    ("torch_simple_gates", ["--profile", "128bit_fast"], 8 * 700, 8 * 700),
+    ("torch_programmable_bootstrap", ["--profile", "uint5"], 7 * 1071, 0),
     ("torch_add_two_numbers", ["--profile", "uint5", "--bool-profile",
-                               "128bit_fast"], 3 * 1071 + 40 * 700),
-    ("torch_manylut_adder", ["--profile", "128bit_fast"], 8 * 700),
-    ("torch_proxy_reencryption", ["--profile", "128bit_fast"], 0),
+                               "128bit_fast"], 3 * 1071 + 40 * 700,
+     3 * 1071 + 40 * 700),
+    ("torch_manylut_adder", ["--profile", "128bit_fast"], 8 * 700, 8 * 700),
+    ("torch_proxy_reencryption", ["--profile", "128bit_fast"], 0, 0),
 )
 
 
@@ -411,9 +425,10 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
 
 def check_counts(launches: dict, per_call: dict, calls: int) -> None:
     """Each kernel launched per_call[name] times per bootstrap call, every
-    other kernel not at all; ``extprod_t_small``, the K2 launches of the
-    small-batch form (a part of ``extprod_t``'s), likewise: a phase at a
-    batch of at most ``cuda_t.SMALL_BATCH_MAX`` names it."""
+    other kernel not at all; ``extprod_t_small`` and ``step_t_small``, the
+    K2 launches of the small-batch form and those of them that were the
+    fused step (parts of ``extprod_t``'s), likewise: a phase at a batch of
+    at most ``cuda_t.SMALL_BATCH_MAX`` names them (:func:`_k1k2`)."""
     for name, count in launches.items():
         want = per_call.get(name, 0) * calls
         check(count == want,
@@ -427,8 +442,8 @@ def kernel_bound(name: str, p, b: int, rows: int = 0) -> tuple:
     once, each output written once) over the H100's HBM3 rate, and its
     int8 tensor-core operations (2 per multiply-add of the cost model's
     ``profiling.limb_pairs``) over the dense int8 peak, both from
-    ``profiling.H100_PEAKS``; for K2's small form its u32 multiply-adds
-    over the INT32 lanes' rate (INT32_TMACS)."""
+    ``profiling.H100_PEAKS``; for K2's small form and the fused step its
+    u32 multiply-adds over the INT32 lanes' rate (INT32_TMACS)."""
     peak = profiling.H100_PEAKS["h100"]
     n, l2, nd, k = p.n, 2 * p.l, p.digit_limbs, p.poly_extend_factor
     rows = rows or l2
@@ -444,6 +459,12 @@ def kernel_bound(name: str, p, b: int, rows: int = 0) -> tuple:
         macs = 2 * k * n * b * rows * n
     elif name == "extprod_t_small":       # u32 multiply-adds on the lanes
         nbytes = nd * rows * n * b + band + 2 * acc
+        t_macs = 2 * n * b * rows * n / (INT32_TMACS * 1e12) * 1e3
+        t_bytes = nbytes / (peak["hbm_gbps"] * 1e9) * 1e3
+        return (t_macs, "operations") if t_macs > t_bytes else (t_bytes,
+                                                                "bytes")
+    elif name == "step_t_small":          # u32 multiply-adds on the lanes
+        nbytes = 2 * acc + b * 4 + band
         t_macs = 2 * n * b * rows * n / (INT32_TMACS * 1e12) * 1e3
         t_bytes = nbytes / (peak["hbm_gbps"] * 1e9) * 1e3
         return (t_macs, "operations") if t_macs > t_bytes else (t_bytes,
@@ -605,8 +626,8 @@ def rotation_graph_against_eager(dev, seed: int, shape_times) -> None:
     """blind_rotate_t's steps replayed from a CUDA graph (B <=
     SMALL_BATCH_MAX on a card) against its first, eager, call and the
     plain versions, exactly, at B 1 on full-size 128bit and uint5 bands
-    (uniform key words); then the steps of a rotation (n_lwe K1 + K2) in
-    the eager loop and in the graph, host clock to the end of the card's
+    (uniform key words); then the steps of a rotation (n_lwe launches of
+    the fused step at B 1) in the eager loop and in the graph, host clock to the end of the card's
     work, ROT_REPS of each in turns (medians): what a chained gate's
     rotation costs the host, eager against graph.  Draws from its own
     generator, so the later phases' keys stay as they were."""
@@ -652,12 +673,73 @@ def rotation_graph_against_eager(dev, seed: int, shape_times) -> None:
         eager_ms, graph_ms_ = (float(np.median(ms[k]))
                                for k in ("eager", "graph"))
         print(f"   rotation steps {p.name} B=1: eager loop {eager_ms:.3f} "
-              f"ms, graph {graph_ms_:.3f} ms ({p.lwe_n} K1 + K2, host "
+              f"ms, graph {graph_ms_:.3f} ms ({p.lwe_n} fused steps, host "
               f"clock to the card's end, medians of {ROT_REPS})", flush=True)
         shape_times[f"rotation steps {p.name} B=1, eager vs graph"] = {
             "ms": graph_ms_, "eager_ms": eager_ms, "plain_ms": None,
             "library_ms": None, "eager_runs_ms": ms["eager"],
             "graph_runs_ms": ms["graph"]}
+
+
+def fused_step_against_pair(dev, seed: int, errs, times,
+                            shape_times) -> None:
+    """The fused step (cuda_t.step_t_small: K1's rotate and decompose made
+    inside K2's small form) against K1 then K2 and against the plain pair,
+    exactly, at 128bit_fast, 128bit, uint4 and uint5, B 1, 3 and
+    SMALL_BATCH_MAX, amounts 0, 1, N - 1, N, N + 1 and 2N - 1 among them,
+    each launch counted under ``step_t_small``, ``extprod_t`` and
+    ``extprod_t_small``; then tools/torch_k2_crossover.py's timing of the
+    step's two ways, 100 steps of each in a CUDA graph at 128bit and uint5,
+    B 1-32 (µs a step in ``shape_times``; 128bit's B 1 is the kernel
+    table's row).  Draws from its own generator, so the later phases' keys
+    stay as they were."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    crossover = benchmarking.load_script("tools/torch_k2_crossover.py")
+    one = {"step_t_small": 1, "extprod_t": 1, "extprod_t_small": 1}
+    for p in (params.P128_FAST, params.P128, params.UINT4, U5):
+        n, nd, lo = p.n, p.digit_limbs, cuda_t.band_limb_drop(p)
+        for b in (1, 3, cuda_t.SMALL_BATCH_MAX):
+            acc = torch.randint(-2 ** 31, 2 ** 31, (2, n, b),
+                                dtype=torch.int32, device=dev, generator=gen)
+            amounts = crossover.edge_amounts(n, b, gen)
+            bsk = torch.randint(-2 ** 31, 2 ** 31, (1, 2 * p.l, 2, n),
+                                dtype=torch.int32, device=dev, generator=gen)
+            band = cuda_t.pack_bsk_band_t(bsk, lo)[0].contiguous()
+            before = dict(cuda_t.launch_counts)
+            fused = cuda_t.step_t_small(p, acc, amounts, band)
+            added = {k: v - before[k] for k, v in cuda_t.launch_counts.items()
+                     if v != before[k]}
+            check(added == one, f"step_t_small at {p.name} B={b} counted "
+                  f"{added}")
+            pair = cuda_t.extprod_t(cuda_t.rotate_decompose_t(p, acc,
+                                                              amounts),
+                                    band, acc, nd, lo)
+            plain = cuda_t.step_t_small_ref(p, acc, amounts, band)
+            torch.cuda.synchronize()
+            e = max(max_abs_err(fused, pair), max_abs_err(fused, plain))
+            print(f"   {p.name:12s} B={b:5d}  fused step vs K1 + K2 and vs "
+                  f"plain max|err| {e}", flush=True)
+            check(e == 0, f"the fused step disagrees at {p.name} B={b}")
+            errs["step_t_small"] = max(errs["step_t_small"], e)
+            if p is params.P128 and b == 1:
+                times["step_t_small"] = (
+                    graph_ms(lambda: cuda_t.step_t_small(p, acc, amounts,
+                                                         band), 100),
+                    cuda_ms(lambda: cuda_t.step_t_small_ref(p, acc, amounts,
+                                                            band), 3))
+    for p in (params.P128, U5):
+        rows = crossover.fused_rows(p, crossover.FUSED_BATCHES, 100, gen)
+        for b, r in rows["by_batch"].items():
+            check(r["exact"], f"the step's two ways disagree at {p.name} "
+                  f"B={b}")
+            print(f"   step {p.name} B={b}: fused {r['fused_us']:.2f} us, "
+                  f"K1 + K2 small {r['pair_us']:.2f} us (graph of 100)",
+                  flush=True)
+            shape_times[f"step_t_small {p.name} B={b}, graph"] = {
+                "ms": r["fused_us"] / 1e3, "pair_ms": r["pair_us"] / 1e3,
+                "plain_ms": None, "library_ms": None}
+        print(f"   the fused step is the faster up to B="
+              f"{rows['fused_faster_up_to']} at {p.name}", flush=True)
 
 
 def k2_form(fn, b: int, what: str) -> tuple:
@@ -1954,7 +2036,7 @@ def examples_phase() -> dict:
     counts."""
     root = os.path.dirname(os.path.abspath(__file__))
     out = {}
-    for name, argv, steps in EXAMPLES:
+    for name, argv, steps, fused in EXAMPLES:
         spec = importlib.util.spec_from_file_location(
             name, os.path.join(root, "examples", f"{name}.py"))
         mod = importlib.util.module_from_spec(spec)
@@ -1969,8 +2051,7 @@ def examples_phase() -> dict:
         if rc:
             print("\n".join(lines), flush=True)
         check(rc == 0, f"{name} {' '.join(argv)} returned {rc}")
-        check_counts(launches, _launches(K1K2, steps,
-                                         extprod_t_small=steps), 1)
+        check_counts(launches, _k1k2(steps, small=steps, fused=fused), 1)
         print(f"   {name}: {lines[-1]}", flush=True)
         out[name] = {"argv": argv, "seconds": secs, "launches": launches}
     return out
@@ -2234,6 +2315,7 @@ def main() -> int:
     shape_times.update(step_pipe_kernels_against_plain(gen, gen_k9, dev,
                                                        errs, times))
     rotation_graph_against_eager(dev, args.seed, shape_times)
+    fused_step_against_pair(dev, args.seed, errs, times, shape_times)
     done(t0)
 
     p = params.P128_FAST
@@ -2274,9 +2356,9 @@ def main() -> int:
     launches = dict(cuda_t.launch_counts)
     print(f"   launches over {calls} bootstrap calls: {launches}",
           flush=True)
-    # the one-gate batch's K2 launches take the small form
-    check_counts(launches, _launches(K1K2, p.lwe_n * calls,
-                                     extprod_t_small=p.lwe_n), 1)
+    # the one-gate batch's steps take the fused step
+    check_counts(launches, _k1k2(p.lwe_n * calls, small=p.lwe_n,
+                                 fused=p.lwe_n), 1)
 
     check(out.shape == (BATCH, p.lwe_n + 1) and out.dtype == torch.int32,
           f"unexpected output {tuple(out.shape)} {out.dtype}")
@@ -2480,6 +2562,8 @@ def main() -> int:
         "extprod_t": ("extprod_t.cu", "pallas_t.py:210", (p, BATCH, 0)),
         "extprod_t_small": ("extprod_t_small.cu", "pallas_t.py:210",
                             (params.P128, 1, 0)),
+        "step_t_small": ("step_t_small.cu", "pallas_t.py:122",
+                         (params.P128, 1, 0)),
         "fused_rotate_step": ("step.cu", "pallas_step.py:140",
                               (p, BATCH, 0)),
         "rotate_decompose_ext_t": ("rotdec_ext_t.cu", "pallas_t.py:348",
@@ -2519,6 +2603,10 @@ def main() -> int:
                         "extprod_t_small", p, 1, 0),
                     f"extprod_t_small {U5.name} B=1": (
                         "extprod_t_small", U5, 1, 0),
+                    f"step_t_small {params.P128.name} B=1, graph": (
+                        "step_t_small", params.P128, 1, 0),
+                    f"step_t_small {U5.name} B=1, graph": (
+                        "step_t_small", U5, 1, 0),
                     f"rotate_decompose_ext_t {params.UINT6_CENTERED.name} "
                     f"B={UINT6_BATCH}, eager loop": (
                         "rotate_decompose_ext_t", params.UINT6_CENTERED,

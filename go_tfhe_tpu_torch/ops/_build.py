@@ -31,8 +31,9 @@ CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 SOURCES = ("rotdec_t.cu", "extprod_t.cu", "rotdec_ext_t.cu",
            "extprod_ext_t.cu", "rotdec_ext.cu", "rotdec.cu", "extprod.cu",
-           "step.cu", "pipe.cu", "extprod_t_small.cu")
-HEADERS = ("extprod_tile.cuh", "rotdec_col.cuh", "rotdec_row.cuh")
+           "step.cu", "pipe.cu", "extprod_t_small.cu", "step_t_small.cu")
+HEADERS = ("extprod_tile.cuh", "rotdec_col.cuh", "rotdec_row.cuh",
+           "extprod_t_small.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -47,6 +48,11 @@ _SIGNATURES = {
     # the same for K2's small-batch form; and whether it takes n, b, l2, nd
     "tfhe_extprod_t_small": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "tfhe_extprod_t_small_fits": (_I, _I, _I, _I),
+    # acc, amounts, band, out, n, b, l, bgbit, offset, stream (K1 in K2's
+    # small form); and whether it takes n, b, l, bgbit
+    "tfhe_step_t_small": (_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_uint32,
+                          _P),
+    "tfhe_step_t_small_fits": (_I, _I, _I, _I),
     # acc, amounts, out, scratch, n, k, b, l, bgbit, offset, nd, tb, stream
     "tfhe_rotdec_ext_t": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
                           ctypes.c_uint32, _I, _I, _P),

@@ -14,9 +14,10 @@ their plain versions on CPU tensors and the Hopper kernels on CUDA
 tensors; ``plain`` runs the plain versions on any device.  At the small
 batches where the host's launches would set the pace (:func:`takes_graph`),
 a route marked ``graphed`` replays its steps from a CUDA graph
-(:class:`_StepGraph`).  Only blind_rotate_t's K1 + K2 is marked: it was
-measured on an H100 (PERF.md, §6), and no other route runs at
-small batches in a cell.
+(:class:`_StepGraph`).  Only blind_rotate_t is marked: it was measured on
+an H100 (PERF.md, §6), and no other route runs at small batches in a
+cell.  At the smallest of them its step is one launch on a card, K1's
+rotate and decompose made inside K2's small form (cuda_t.step_t_small).
 
 Mod switch (evaluator/evaluator.go:116,122):
     b~ = 2N - ((b + 2^(31-NBIT-1)) >> (32-NBIT-1))
@@ -83,7 +84,8 @@ from .cuda_rotate import rotate_decompose, rotate_decompose_ref
 from .cuda_step import fused_rotate_step, fused_rotate_step_ref
 from .cuda_t import (SMALL_BATCH_MAX, band_limb_drop, extprod_t,
                      extprod_t_ref, launch_counts, rotate_decompose_t,
-                     rotate_decompose_t_ref)
+                     rotate_decompose_t_ref, step_t_small, step_t_small_ref,
+                     takes_fused_step)
 from .decompose import gadget_decompose
 from .extprod import cmux, external_product
 from .polymul import negacyclic_extprod_toeplitz
@@ -275,8 +277,8 @@ def _back(layout: str, p: TFHEParams, acc: torch.Tensor) -> torch.Tensor:
 def takes_graph(device: torch.device, b: int, plain: bool = False) -> bool:
     """Whether a graphed route replays its steps from a CUDA graph: the
     kernels on a card (not their plain versions) at a batch of at most
-    cuda_t.SMALL_BATCH_MAX, where the host's two launches a step take
-    longer than the card's two kernels (PERF.md, §5)."""
+    cuda_t.SMALL_BATCH_MAX, where the host's launches take longer than the
+    card's kernels (PERF.md, §5)."""
     return not plain and device.type == "cuda" and b <= SMALL_BATCH_MAX
 
 
@@ -407,6 +409,21 @@ def _bit_steps(p, bands, acc, a_tilda, ops):
     return acc
 
 
+def _t_steps(p, bands, acc, a_tilda, ops):
+    """blind_rotate_t's, on the (2, N, B) accumulator: one launch a step,
+    K1's rotate and decompose made inside K2's small form
+    (cuda_t.step_t_small), where cuda_t.takes_fused_step says so for the
+    accumulator's card and batch; else :func:`_bit_steps` with K1 and K2.
+    The plain versions choose the same way: their fused step is K1's
+    plain version, then K2's."""
+    rotdec, contract, step = ops
+    if not takes_fused_step(acc.device, p, acc.shape[2]):
+        return _bit_steps(p, bands, acc, a_tilda, (rotdec, contract))
+    for i in range(a_tilda.shape[0]):
+        acc = step(p, acc, a_tilda[i], bands[i])
+    return acc
+
+
 def _ext_t_steps(p, bands, acc, a_tilda, ops):
     """blind_rotate_extended_t's, on the (2, k*N, B) accumulator: K4, then
     K5, every block against the step's band."""
@@ -466,8 +483,9 @@ ROUTES = {
     "blind_rotate_extended": Route("batch", _blocks_cmux_steps),
     "blind_rotate_block_portable": Route("batch", _block_portable_steps),
     "blind_rotate_t": Route(
-        "col", _bit_steps, (rotate_decompose_t, extprod_t),
-        (rotate_decompose_t_ref, extprod_t_ref), graphed=True),
+        "col", _t_steps, (rotate_decompose_t, extprod_t, step_t_small),
+        (rotate_decompose_t_ref, extprod_t_ref, step_t_small_ref),
+        graphed=True),
     "blind_rotate_extended_t": Route(
         "col", _ext_t_steps, (rotate_decompose_ext_t, extprod_ext_t),
         (rotate_decompose_ext_t_ref, extprod_ext_t_ref)),
@@ -544,7 +562,9 @@ def blind_rotate_block_portable(p: TFHEParams, bsk_bands: torch.Tensor,
 def blind_rotate_t(p: TFHEParams, bands: torch.Tensor, ct: torch.Tensor,
                    testvec: torch.Tensor, theta: int = 0,
                    plain: bool = False) -> torch.Tensor:
-    """Blind-rotate a batch of LWE ciphertexts: per step K1, then K2.
+    """Blind-rotate a batch of LWE ciphertexts: per step K1, then K2; one
+    launch a step where cuda_t.takes_fused_step says so (a card, B <=
+    cuda_t.FUSED_BATCH_MAX: cuda_t.step_t_small, the same words).
 
     bands:   (n_lwe, 2, 2L, 2N) int32 K2 bands (cuda_t.pack_bsk_band_t).
     ct:      (B, n_lwe+1) int32 words.

@@ -13,7 +13,10 @@ Each kernel has a wrapper and a plain PyTorch version beside it:
   ``csrc/rotdec_t.cu``;
 * K2 :func:`extprod_t` / :func:`extprod_t_ref` — ``csrc/extprod_t.cu``,
   and at small batches ``csrc/extprod_t_small.cu``
-  (:func:`takes_small_form`).
+  (:func:`takes_small_form`);
+* K1 + K2's small form in one launch, :func:`step_t_small` /
+  :func:`step_t_small_ref` — ``csrc/step_t_small.cu``, the blind
+  rotation's step at small batches (:func:`takes_fused_step`).
 
 :func:`extprod_t_mm` computes K2's function through ``torch._int_mm`` (the
 library form, a yardstick of speed for the card); no path of the port calls
@@ -55,6 +58,16 @@ _EXTPROD_TN = 64
 # 89 against 138 µs a step at B 32) and at uint5's (N 2048, 2L 2, ND 3; 158
 # against 172 µs).
 SMALL_BATCH_MAX = 32
+# The largest batch whose blind-rotation steps run the fused step
+# (:func:`takes_fused_step`).  On an H100, a step in a CUDA graph of 100
+# (PERF.md §6), fused / K1 + K2's small form, µs: at the 128-bit shapes B 1
+# 7.67 / 24.43, B 2 10.26 / 26.60, B 4 17.48 / 24.21, B 8 30.17 / 32.14,
+# B 16 63.54 / 53.48, B 32 138.24 / 104.26; at uint5's 9.47 / 41.34, 14.38
+# / 41.84, 26.63 / 35.35, 52.49 / 52.07, 108.02 / 85.80, 273.75 / 178.50.
+# Every block of the fused step makes its ciphertexts' digits, 2N/16 times
+# over, so its cost grows with B faster than K1's one pass: the two tie at
+# B 8 (uint5) and the pair is the faster from B 16.
+FUSED_BATCH_MAX = 4
 # The H100's dynamic shared memory per block (opt-in limit), and the widths
 # of a rotate + decompose tile (csrc/rotdec_col.cuh).
 SMEM_LIMIT = 232448
@@ -65,7 +78,8 @@ ROW_SMEM_LIMIT = 49152
 _ROW_THREADS = 256
 
 # Launches by wrapper name: utils/tracing.py's always-kept count (its
-# "extprod_t_small" key is a sub-count of "extprod_t").
+# "extprod_t_small" key is a sub-count of "extprod_t", and "step_t_small"
+# one of "extprod_t_small").
 launch_counts = tracing.launch_counts
 
 
@@ -331,6 +345,78 @@ def check_tile(name: str, n: int, rows: int, lo: int) -> None:
     if 4 * rows * n * (1 << 14) >= 1 << 31:
         raise ValueError(f"{name}: R*N = {rows * n} terms could overflow the "
                          "kernel's s32 limb-pair sums (needs < 2^15)")
+
+
+# ---------------------------------------------------------------------------
+# K1 + K2's small form in one launch: the blind rotation's step at small
+# batches.
+# ---------------------------------------------------------------------------
+
+def step_t_small_ref(p: TFHEParams, acc: torch.Tensor, amounts: torch.Tensor,
+                     band: torch.Tensor) -> torch.Tensor:
+    """Plain fused step: K1's plain version, then K2's.
+
+    acc (2, N, B) int32 words; amounts (B,) int32 in [0, 2N]; band
+    (2, 2L, 2N) from :func:`pack_bsk_band_t`.  Returns the new (2, N, B)
+    accumulator acc + sum_{r,j} d[r,j] * band[c, r, N+n-j] mod 2^32, d the
+    digits of X^amount . acc - acc."""
+    digits = rotate_decompose_t_ref(p, acc, amounts)
+    return extprod_t_ref(digits, band, acc, p.digit_limbs)
+
+
+def step_t_small(p: TFHEParams, acc: torch.Tensor, amounts: torch.Tensor,
+                 band: torch.Tensor) -> torch.Tensor:
+    """K1 followed by K2's small form, in one launch
+    (``csrc/step_t_small.cu``): see the ref's contract; the same words as
+    :func:`rotate_decompose_t` then :func:`extprod_t`.  Returns a new
+    tensor; ``acc`` is not modified.  The shapes must be ones that
+    :func:`fused_fits` accepts.
+
+    A launch counts under ``step_t_small``, and as the K2 launch of the
+    small form that it also is, under ``extprod_t`` and
+    ``extprod_t_small``; not under ``rotate_decompose_t``."""
+    if acc.device.type == "cpu":
+        return step_t_small_ref(p, acc, amounts, band)
+    _, n, b = acc.shape
+    l2 = 2 * p.l
+    _check("acc", acc, TORUS, (2, n, b), acc.device)
+    _check("amounts", amounts, torch.int32, (b,), acc.device)
+    _check("band", band, TORUS, (2, l2, 2 * n), acc.device)
+    out = torch.empty_like(acc)
+    launch("step_t_small", "tfhe_step_t_small", acc.device, acc.data_ptr(),
+           amounts.data_ptr(), band.data_ptr(), out.data_ptr(), n, b, p.l,
+           p.bgbit, p.decomposition_offset)
+    launch_counts["extprod_t"] += 1
+    launch_counts["extprod_t_small"] += 1
+    return out
+
+
+def takes_fused_step(device: torch.device, p: TFHEParams, b: int) -> bool:
+    """Whether a blind rotation's steps at batch ``b`` run
+    :func:`step_t_small`: on a card, at most :data:`FUSED_BATCH_MAX`
+    ciphertexts (where it is the faster; N, 2L and ND do not enter), where
+    the kernel takes the shapes (:func:`fused_fits`); else K1 and K2
+    apart."""
+    return device.type == "cuda" and b <= FUSED_BATCH_MAX and fused_fits(
+        device, p, b)
+
+
+# (card index, N, B, L, bgbit) -> whether the fused step's block fits.
+_fused_fits: dict = {}
+
+
+def fused_fits(device: torch.device, p: TFHEParams, b: int) -> bool:
+    """Whether :func:`step_t_small` takes profile ``p``'s shapes at batch
+    ``b`` on ``device``'s card: the kernel's own rule
+    (``tfhe_step_t_small_fits``: K2's small-form block within the card's
+    shared memory, a gadget of at most 32 bits), asked once for each
+    shape."""
+    key = (device.index, p.n, b, p.l, p.bgbit)
+    if key not in _fused_fits:
+        with torch.cuda.device(device):
+            _fused_fits[key] = bool(_build.load_library(
+            ).tfhe_step_t_small_fits(p.n, b, p.l, p.bgbit))
+    return _fused_fits[key]
 
 
 # ---------------------------------------------------------------------------

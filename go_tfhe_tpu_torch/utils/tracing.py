@@ -107,15 +107,17 @@ _first_run: dict = {}        # span site (or library.*) -> host seconds
 # The always-kept counts, which the ops add to: ops.cuda_t.launch_counts
 # and ops.blindrotate.rotation_counts are these objects (the benchmark's
 # readers read them there).
-# Kernel launches by wrapper name (ops.cuda_t.launch).  One key is a
-# sub-count, no kernel of its own: "extprod_t_small" counts the
-# "extprod_t" launches that took K2's small-batch form, so a total of
-# launches leaves it out.
+# Kernel launches by wrapper name (ops.cuda_t.launch).  Two keys are
+# sub-counts, no kernels of their own (SUB_COUNTS): "extprod_t_small"
+# counts the "extprod_t" launches that took K2's small-batch form, and
+# "step_t_small" those of them that also did K1's work (the fused step),
+# so a total of launches leaves both out.
 launch_counts = {"rotate_decompose_t": 0, "extprod_t": 0,
                  "rotate_decompose_ext_t": 0, "extprod_ext_t": 0,
                  "rotate_decompose_ext": 0, "rotate_decompose": 0,
                  "extprod": 0, "fused_rotate_step": 0, "pipe_step": 0,
-                 "extprod_t_small": 0}
+                 "extprod_t_small": 0, "step_t_small": 0}
+SUB_COUNTS = ("extprod_t_small", "step_t_small")
 rotation_counts = {"rotations": 0, "replayed": 0}
 # (entry, card index) -> host seconds of its first launch; ops.cuda_t.launch
 # looks its key up on every launch and writes it on the first.

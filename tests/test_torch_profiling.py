@@ -131,6 +131,8 @@ BOUND_ROWS = [
     ("rotate_decompose_t", "128bit_fast", 2048, 0, 0.0075, "bytes"),
     ("extprod_t_small", "128bit", 1, 0, 0.0008, "operations"),
     ("extprod_t_small", "uint5", 1, 0, 0.0010, "operations"),
+    ("step_t_small", "128bit", 1, 0, 0.0008, "operations"),
+    ("step_t_small", "uint5", 1, 0, 0.0010, "operations"),
 ]
 
 

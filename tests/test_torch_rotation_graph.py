@@ -1,6 +1,7 @@
 """blind_rotate_t's step graph (ops/blindrotate.py): on a card, at a batch
 of at most ``cuda_t.SMALL_BATCH_MAX``, the n_lwe steps are one replay of a
-CUDA graph of the eager loop's launches.  Its rule, its counter, the cache
+CUDA graph of the eager loop's launches (one launch of the fused step
+each, K1 inside K2's small form).  Its rule, its counter, the cache
 that ties each graph to its bands, and the benchmark's reader of the
 counter (``benchmark/metrics/rotation.graph_share.py``) on the CPU; the
 replay's words, counts and buffers on the card (``gpu`` cases, which skip
@@ -294,10 +295,42 @@ def test_two_keys_get_two_entries_and_a_freed_key_drops_its_own_on_gpu(
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("profile", ["128bit", "uint5"])
+def test_a_replayed_fused_rotation_equals_k1_k2_and_plain_on_gpu(
+        cuda_device, profile, b, monkeypatch):
+    """The steps replayed from the graph run the fused step (K1 inside
+    K2's small form); their words equal the eager fused loop's, the eager
+    loop of K1 then K2 (the fused rule turned off), and the plain
+    versions'."""
+    p = tparams.get_params(profile)
+    bands = _key(p, cuda_device, 14)
+    ct, tv = _inputs(p, b, cuda_device, 15)
+    blindrotate.blind_rotate_t(p, bands, ct, tv)             # eager, captures
+    graph = blindrotate.blind_rotate_t(p, bands, ct, tv)
+    (step_graph,) = blindrotate._graphs_of(bands).values()
+    assert step_graph.launches["step_t_small"] == p.lwe_n
+    with monkeypatch.context() as m:
+        m.setattr(blindrotate, "takes_graph", lambda *args: False)
+        eager = blindrotate.blind_rotate_t(p, bands, ct, tv)
+        m.setattr(blindrotate, "takes_fused_step", lambda *args: False)
+        before = dict(cuda_t.launch_counts)
+        pair = blindrotate.blind_rotate_t(p, bands, ct, tv)
+        assert cuda_t.launch_counts["rotate_decompose_t"] == \
+            before["rotate_decompose_t"] + p.lwe_n
+        assert cuda_t.launch_counts["step_t_small"] == before["step_t_small"]
+    plain = blindrotate.blind_rotate_t(p, bands, ct, tv, plain=True)
+    for other in (eager, pair, plain):
+        np.testing.assert_array_equal(to_numpy_u32(graph),
+                                      to_numpy_u32(other))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("profile", ["128bit", "uint5"])
 def test_each_replay_counts_its_launches_on_gpu(cuda_device, profile):
-    """A replay adds what the card ran: n_lwe K1, n_lwe K2, and n_lwe of
-    K2's small form; the capture itself counts nothing."""
+    """A replay adds what the card ran: n_lwe launches of the fused step,
+    each also a K2 launch of the small form, and no K1; the capture
+    itself counts nothing."""
     p = tparams.get_params(profile)
     bands = _key(p, cuda_device, 12)
     ct, tv = _inputs(p, 1, cuda_device, 13)
@@ -308,8 +341,9 @@ def test_each_replay_counts_its_launches_on_gpu(cuda_device, profile):
     added = {name: cuda_t.launch_counts[name] - n
              for name, n in before.items()}
     n = p.lwe_n
-    assert added == dict(dict.fromkeys(added, 0), rotate_decompose_t=n,
+    assert added == dict(dict.fromkeys(added, 0), step_t_small=n,
                          extprod_t=n, extprod_t_small=n)
+    assert added["rotate_decompose_t"] == 0
     graph = blindrotate._graphs[id(bands)][1]
     assert [g.launches for g in graph.values()] == [
-        {"rotate_decompose_t": n, "extprod_t": n, "extprod_t_small": n}]
+        {"step_t_small": n, "extprod_t": n, "extprod_t_small": n}]

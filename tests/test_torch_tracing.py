@@ -523,6 +523,17 @@ def test_program_trace_counts_small_form_launches_once():
     assert tool._kernel_launches(counts) == 1400
 
 
+def test_program_trace_counts_a_fused_step_once():
+    """A launch of the fused step (K1 inside K2's small form) counts once,
+    under ``extprod_t``: not again under ``extprod_t_small`` or
+    ``step_t_small``, and K1 is not launched apart."""
+    from go_tfhe_tpu_torch.utils.benchmarking import load_script
+    tool = load_script("tools/torch_program_trace.py")
+    counts = dict.fromkeys(cuda_t.launch_counts, 0)
+    counts.update(extprod_t=700, extprod_t_small=700, step_t_small=700)
+    assert tool._kernel_launches(counts) == 700
+
+
 def test_program_trace_reads_the_extended_set_up(ext9, monkeypatch):
     """tools/torch_program_trace.py's pass (a) on a toy k 9 cell: the
     ``rotation.ext_blocks`` span's host ms a call and ``rotation.block_rows``

@@ -29,9 +29,9 @@ cell's own calls in two passes with the recorder on:
     * ``rotation.block_rows``: the counter over the rotations, the rows
       K8 (or K5) contracts a step (B * k);
     * ``launches_per_call_by_entry``: each kernel entry's launches a call
-      (``ops.cuda_t.launch_counts``, whose ``extprod_t_small`` is a part of
-      ``extprod_t``; ``lwe_n`` of ``rotate_decompose_ext`` and of
-      ``extprod`` a call at uint8);
+      (``ops.cuda_t.launch_counts``, whose ``extprod_t_small`` and
+      ``step_t_small`` are parts of ``extprod_t``; ``lwe_n`` of
+      ``rotate_decompose_ext`` and of ``extprod`` a call at uint8);
     * ``sites``: each span's host and device ms, medians over calls;
 
 (b) under ``torch.profiler``: each stretch in which no operation ran on the
@@ -86,9 +86,11 @@ def _calls(r, n: int) -> None:
 
 
 def _kernel_launches(counts: dict) -> int:
-    """The launches in ``launch_counts``: ``extprod_t_small`` is a part of
-    ``extprod_t``'s count, not launches of its own."""
-    return sum(v for k, v in counts.items() if k != "extprod_t_small")
+    """The launches in ``launch_counts``: its sub-counts
+    (``utils/tracing.SUB_COUNTS``: ``extprod_t_small`` and ``step_t_small``,
+    parts of ``extprod_t``'s count) are not launches of their own."""
+    from go_tfhe_tpu_torch.utils import tracing
+    return sum(v for k, v in counts.items() if k not in tracing.SUB_COUNTS)
 
 
 def _per_rotation(snap: dict, counter: str):
