@@ -102,8 +102,10 @@ from .rotate import monomial_mul, monomial_mul_blocks
 FUSED_STEP = False
 
 # The rotations run, and of them those whose steps were replayed from a
-# CUDA graph (:func:`takes_graph`): utils/tracing.py's always-kept counts.
+# CUDA graph (:func:`takes_graph`); the rotations by route: utils/tracing.py's
+# always-kept counts.
 rotation_counts = tracing.rotation_counts
+route_counts = tracing.route_counts
 
 
 def mod_switch_2n(x: torch.Tensor, p: TFHEParams, theta: int = 0
@@ -210,6 +212,7 @@ def rotate(route: str, p: TFHEParams, bands: torch.Tensor, ct: torch.Tensor,
             # so the capture meets none of them.
             graphs[key] = _StepGraph(r, p, bands, b, ct.device)
     rotation_counts["rotations"] += 1
+    route_counts[route] = route_counts.get(route, 0) + 1
     acc = _back(r.layout, p, acc)
     # A replay's result is the graph's own buffer, which the next replay
     # overwrites: the caller gets a copy even where the layout back is a

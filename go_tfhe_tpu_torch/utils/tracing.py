@@ -66,8 +66,10 @@ stream, the ctypes call).  The program's kernel launches are
   span's attribute ``transient_bytes`` for that call;
 * the rotation counts, :data:`rotation_counts`
   (``ops.blindrotate.rotation_counts``): the blind rotations run, and of
-  them those whose steps were replayed from a CUDA graph; :func:`reset`
-  zeroes them;
+  them those whose steps were replayed from a CUDA graph; and
+  :data:`route_counts` (``ops.blindrotate.route_counts``): the same
+  rotations by route, a name of ``ops.blindrotate.ROUTES``; :func:`reset`
+  zeroes both;
 * first-run records: the host seconds of each span site's first run in the
   process (``first_run_s``, with ``library.load`` and ``library.nvcc``,
   the kernel library's load and its build, 0 where it was built already),
@@ -119,6 +121,9 @@ launch_counts = {"rotate_decompose_t": 0, "extprod_t": 0,
                  "extprod_t_small": 0, "step_t_small": 0}
 SUB_COUNTS = ("extprod_t_small", "step_t_small")
 rotation_counts = {"rotations": 0, "replayed": 0}
+# The rotations by route (a name of ops.blindrotate.ROUTES): a route
+# appears at its first rotation since reset().
+route_counts: dict = {}
 # (entry, card index) -> host seconds of its first launch; ops.cuda_t.launch
 # looks its key up on every launch and writes it on the first.
 first_launches: dict = {}
@@ -257,19 +262,22 @@ def note_first_run(name: str, seconds: float) -> None:
 
 def reset() -> None:
     """Drop the span records, counters and peaks and zero the rotation
-    counts (not the first-run records, which describe the process)."""
+    counts, overall and by route (not the first-run records, which
+    describe the process)."""
     global _dropped
     _spans.clear()
     _counters.clear()
     _peaks.clear()
     _dropped = 0
     rotation_counts.update(dict.fromkeys(rotation_counts, 0))
+    route_counts.clear()
 
 
 def snapshot() -> dict:
     """What was recorded since :func:`reset`: ``spans`` (records, oldest
     first, each with ``device_ms``: None off a CUDA device), ``counters``,
-    ``peaks``, ``rotations`` (:data:`rotation_counts`), ``launches``
+    ``peaks``, ``rotations`` (:data:`rotation_counts`, and under
+    ``by_route`` :data:`route_counts`), ``launches``
     (:data:`launch_counts` as they stand), ``first_run_s``,
     ``first_launch_s`` and ``dropped``.  Waits for the card where a span's
     end event has not completed."""
@@ -282,7 +290,7 @@ def snapshot() -> dict:
             rec.setdefault("device_ms", None)
     return {"spans": [dict(rec) for rec in _spans],
             "counters": dict(_counters), "peaks": dict(_peaks),
-            "rotations": dict(rotation_counts),
+            "rotations": {**rotation_counts, "by_route": dict(route_counts)},
             "launches": dict(launch_counts),
             "first_run_s": dict(_first_run),
             "first_launch_s": {f"{entry}@cuda:{index}": s

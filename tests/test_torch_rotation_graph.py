@@ -80,8 +80,8 @@ def test_a_cpu_rotation_counts_and_replays_nothing(fast, b):
     engine.bootstrap(ck, x, plain=True)
     engine.bootstrap_many(ck, x, ck.testvec, k=2, theta=1)
     assert blindrotate.rotation_counts == {"rotations": 3, "replayed": 0}
-    assert tracing.snapshot()["rotations"] == {"rotations": 3,
-                                               "replayed": 0}
+    assert tracing.snapshot()["rotations"] == {
+        "rotations": 3, "replayed": 0, "by_route": {"blind_rotate_t": 3}}
     assert blindrotate._graphs == graphs
     assert cipher.lwe_decrypt_bool(out, sk.lv0).all()
     tracing.reset()

@@ -11,6 +11,7 @@ import importlib.util
 import inspect
 import json
 import os
+import sys
 import threading
 
 import pytest
@@ -397,10 +398,66 @@ def test_the_always_kept_counts_are_the_recorders_own(monkeypatch):
     monkeypatch.setitem(tracing.rotation_counts, "replayed", 2)
     snap = tracing.snapshot()
     assert snap["launches"]["extprod_t"] == 5
-    assert snap["rotations"] == {"rotations": 3, "replayed": 2}
+    assert snap["rotations"] == {"rotations": 3, "replayed": 2,
+                                 "by_route": {}}
     tracing.reset()
     assert blindrotate.rotation_counts == {"rotations": 0, "replayed": 0}
     assert cuda_t.launch_counts["extprod_t"] == 5
+
+
+@pytest.mark.parametrize("transposed", [True, False], ids=["k4k5", "k6k8"])
+def test_rotations_are_counted_by_route(transposed, fast, ext9):
+    """Always kept, the recorder off: each rotation adds one to its route's
+    count (the extended key's, a gate's, a route asked for by name), the
+    snapshot carries them under ``rotations["by_route"]`` and reset()
+    zeroes them."""
+    assert blindrotate.route_counts is tracing.route_counts
+    p, gen, sk, ck = fast
+    x = _bits(gen, p, sk)
+    ext = _ext_call(ext9, transposed)
+    ext()
+    ext()
+    engine.bootstrap(ck, x)
+    engine._bootstrap(ck, x, None, True, False, route="blind_rotate")
+    assert not tracing.active
+    want = {EXT_ROUTES[transposed]: 2, "blind_rotate_t": 1,
+            "blind_rotate": 1}
+    assert blindrotate.route_counts == want
+    assert sum(want.values()) == blindrotate.rotation_counts["rotations"]
+    assert tracing.snapshot()["rotations"]["by_route"] == want
+    tracing.reset()
+    assert blindrotate.route_counts == {}
+    assert tracing.snapshot()["rotations"] == {
+        "rotations": 0, "replayed": 0, "by_route": {}}
+
+
+def _ext_t_share():
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "benchmark", "metrics",
+        "rotation.ext_t_share.py")
+    spec = importlib.util.spec_from_file_location("ext_t_share", path)
+    reader = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(reader)
+    return reader
+
+
+def test_ext_t_share_reads_the_route_counts(monkeypatch):
+    """benchmark/metrics/rotation.ext_t_share.py: 100 x the rotations on
+    blind_rotate_extended_t over all the run's rotations; None where no
+    rotation ran or the program keeps no count by route."""
+    reader = _ext_t_share()
+    monkeypatch.setitem(tracing.route_counts, "blind_rotate_extended_t", 6)
+    assert reader.read({}) == 100.0
+    monkeypatch.setitem(tracing.route_counts, "blind_rotate_extended_rm", 2)
+    assert reader.read({}) == 75.0
+    monkeypatch.delitem(tracing.route_counts, "blind_rotate_extended_t")
+    assert reader.read({}) == 0.0
+    tracing.reset()
+    assert reader.read({}) is None
+    monkeypatch.delattr(tracing, "route_counts")
+    assert reader.read({}) is None
+    monkeypatch.setitem(sys.modules, "go_tfhe_tpu_torch.utils.tracing", None)
+    assert reader.read({}) is None
 
 
 def test_the_recorder_imports_nothing_from_ops():
