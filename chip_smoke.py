@@ -42,10 +42,10 @@ entry points a user calls:
   each held against the plain path) and
   ``models.comparators.ge``/``lt``/``eq`` on every pair of [0, 16)^2,
   tiled to 2048;
-* proxy re-encryption at ``128bit_fast``'s level 0 (no kernel: the key
-  switch's digit contraction): keys made on the card, symmetric and
-  asymmetric re-encryption of 4096 bits and a 3-hop chain, the card's
-  words against the CPU's;
+* proxy re-encryption at ``128bit_fast``'s level 0 (the key switch's
+  gather-and-sum kernel on the re-encryption key's table): keys made on
+  the card, symmetric and asymmetric re-encryption of 4096 bits and a
+  3-hop chain, the card's words against the CPU's;
 * the batch-sharded bootstrap (``parallel``) on the first NAND batch: a
   mesh of every card and a mesh naming the card 4 times (shards of 1024),
   each equal to the unsharded words with 700 K1/K2 launches a shard,
@@ -92,9 +92,14 @@ short as their host launch cost, replayed from a CUDA graph, with their
 eager loop beside it; K9 also without its Y half, beside K1 alone on
 that half, and its blocks an SM at the tile's and the launch's shared
 memory), K2, K5 and K8 beside their library form (``torch._int_mm`` on
-int8 Toeplitz key limbs, ``library_ms``).
+int8 Toeplitz key limbs, ``library_ms``); and the key switch's
+gather-and-sum (``csrc/keyswitch.cu``) against its plain version at the
+cells' shapes (``128bit`` B 1, 256 and 4096, ``uint5`` B 1 and 2048,
+``uint8_centered`` B 256), timed from a CUDA graph.
 Each path runs with the launch counters set to 0 just before it and read
-just after.
+just after; every key switch of a path on the card launches that kernel
+(counted as ``key_switch``), and each path's check against the plain
+path runs the switch's plain version too.
 
 Any failed check raises, so the script exits non-zero and prints no
 result.  It needs a CUDA device: there is no CPU run.  On success its last
@@ -129,7 +134,7 @@ from go_tfhe_tpu_torch.models import adders, comparators
 from go_tfhe_tpu_torch.ops import (_build, blindrotate, cuda_ext, cuda_ext_t,
                                    cuda_extprod, cuda_pipe, cuda_rotate,
                                    cuda_step, cuda_t, decompose, extprod,
-                                   polymul)
+                                   keyswitch, polymul)
 from go_tfhe_tpu_torch.ops.blindrotate import block_bands
 from go_tfhe_tpu_torch.utils import benchmarking, profiling, tracing
 from go_tfhe_tpu_torch.utils.torus import f64_to_torus, wrap_i32
@@ -423,14 +428,22 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
 
 
-def check_counts(launches: dict, per_call: dict, calls: int) -> None:
+def check_counts(launches: dict, per_call: dict, calls: int,
+                 switches: int | None) -> None:
     """Each kernel launched per_call[name] times per bootstrap call, every
     other kernel not at all; ``extprod_t_small`` and ``step_t_small``, the
     K2 launches of the small-batch form and those of them that were the
     fused step (parts of ``extprod_t``'s), likewise: a phase at a batch of
-    at most ``cuda_t.SMALL_BATCH_MAX`` names them (:func:`_k1k2`)."""
+    at most ``cuda_t.SMALL_BATCH_MAX`` names them (:func:`_k1k2`).  The
+    key switch's kernel (``key_switch``) ``switches`` times: the path's
+    key switches, each of which must launch it; None (a script's run,
+    whose switches are its own): as often as the last :func:`timed_run`'s
+    switches asked for it (:data:`ASKED_SWITCHES`)."""
     for name, count in launches.items():
-        want = per_call.get(name, 0) * calls
+        if name == "key_switch":
+            want = ASKED_SWITCHES[0] if switches is None else switches
+        else:
+            want = per_call.get(name, 0) * calls
         check(count == want,
               f"{name} launched {count} times, expected {want}")
 
@@ -443,8 +456,19 @@ def kernel_bound(name: str, p, b: int, rows: int = 0) -> tuple:
     int8 tensor-core operations (2 per multiply-add of the cost model's
     ``profiling.limb_pairs``) over the dense int8 peak, both from
     ``profiling.H100_PEAKS``; for K2's small form and the fused step its
-    u32 multiply-adds over the INT32 lanes' rate (INT32_TMACS)."""
+    u32 multiply-adds over the INT32 lanes' rate (INT32_TMACS); for the
+    key switch's gather-and-sum the larger of the distinct table rows
+    the batch picks (min(b, base) of each slab's base rows: at most the
+    whole table) with its input and output, and its b * N * t * (lwe_n+1)
+    u32 adds over the same rate."""
     peak = profiling.H100_PEAKS["h100"]
+    if name == "key_switch":
+        slabs, w = p.n * p.iks_t, p.lwe_n + 1
+        nbytes = 4 * (min(b, p.base) * slabs * w + b * (p.n + 1) + b * w)
+        t_adds = b * slabs * w / (INT32_TMACS * 1e12) * 1e3
+        t_bytes = nbytes / (peak["hbm_gbps"] * 1e9) * 1e3
+        return (t_adds, "operations") if t_adds > t_bytes else (t_bytes,
+                                                                "bytes")
     n, l2, nd, k = p.n, 2 * p.l, p.digit_limbs, p.poly_extend_factor
     rows = rows or l2
     acc = 2 * k * n * b * 4                     # one accumulator, words
@@ -740,6 +764,87 @@ def fused_step_against_pair(dev, seed: int, errs, times,
                 "plain_ms": None, "library_ms": None}
         print(f"   the fused step is the faster up to B="
               f"{rows['fused_faster_up_to']} at {p.name}", flush=True)
+
+
+# The key switch's shapes held against the plain version and timed (the
+# cells': 128bit's chain, nand-b256 and nand-b4096; uint5's chain and
+# lut-b2048; uint8_centered's sbox-b256), and the one of the kernels
+# table's row (uint5's chain).
+KS_CASES = ((params.P128, 1), (params.P128, 256), (params.P128, BATCH),
+            (U5, 1), (U5, U5_BATCH), (params.UINT8_CENTERED, UINT8_BATCH))
+KS_ROW = (U5, 1)
+
+
+def ks_edge_words(p) -> torch.Tensor:
+    """0, 2^32 - 1, 2^31 - 1, 2^31 and the words at and beside the
+    digits' rounding edges (a + 2^(31 - basebit*t) crosses a multiple of
+    2^(32 - basebit*t) at k * 2^(32 - basebit*t) - 2^(31 - basebit*t)),
+    as int32 words."""
+    bt = p.basebit * p.iks_t
+    step, half = 1 << (32 - bt), 1 << (31 - bt)
+    words = [0, 2 ** 32 - 1, 2 ** 31 - 1, 2 ** 31]
+    for k in (0, 1, 2, 1 << (bt - 1), (1 << bt) - 1):
+        words += [(k * step - half + d) % 2 ** 32 for d in (-1, 0, 1)]
+    return wrap_i32(torch.tensor(words, dtype=torch.int64))
+
+
+def key_switch_against_plain(dev, seed: int, errs, times,
+                             shape_times) -> None:
+    """The key switch's gather-and-sum (``keyswitch.digit_table_switch``
+    on the card: one ``key_switch`` launch) against its plain version,
+    word for word, at KS_CASES: a random table at the profile's KSK shape
+    with zero digit-0 rows (as keygen leaves them), random level-1 words
+    with the digits' edge words over the first ciphertext's a-part; then
+    the kernel replayed from a CUDA graph (20 calls) and the plain
+    version (CUDA events), ms a call in ``shape_times`` with the bound.
+    Draws from its own generator, so the later phases' keys stay as they
+    were."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 6)
+    table = None
+    for p, b in KS_CASES:
+        if table is None or table.shape[0] != p.n or table.shape[1:] != (
+                p.iks_t, p.base, p.lwe_n + 1):
+            table = None
+            torch.cuda.empty_cache()
+            table = torch.randint(-2 ** 31, 2 ** 31,
+                                  (p.n, p.iks_t, p.base, p.lwe_n + 1),
+                                  dtype=torch.int32, device=dev,
+                                  generator=gen)
+            table[:, :, 0] = 0
+        ct = torch.randint(-2 ** 31, 2 ** 31, (b, p.n + 1),
+                           dtype=torch.int32, device=dev, generator=gen)
+        edges = ks_edge_words(p).to(dev)
+        ct[0, :len(edges)] = edges
+        before = cuda_t.launch_counts["key_switch"]
+        got = keyswitch.digit_table_switch(table, ct, p.basebit, p.iks_t)
+        check(cuda_t.launch_counts["key_switch"] == before + 1,
+              f"the key switch at {p.name} B={b} took no kernel")
+        plain = keyswitch.digit_table_switch_ref(table, ct, p.basebit,
+                                                 p.iks_t)
+        e = max_abs_err(got, plain)
+        print(f"   {p.name:14s} B={b:5d}  key switch kernel vs plain "
+              f"max|err| {e}", flush=True)
+        check(e == 0, f"the key switch's kernel disagrees at {p.name} "
+              f"B={b}")
+        errs["key_switch"] = max(errs["key_switch"], e)
+        del plain
+        ms = graph_ms(lambda: keyswitch.digit_table_switch(
+            table, ct, p.basebit, p.iks_t), 20)
+        plain_ms = cuda_ms(lambda: keyswitch.digit_table_switch_ref(
+            table, ct, p.basebit, p.iks_t), 3)
+        bound_ms, bound_by = kernel_bound("key_switch", p, b)
+        print(f"   key switch {p.name} B={b}: kernel {ms:.4f} ms (graph), "
+              f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by})", flush=True)
+        shape_times[f"key_switch {p.name} B={b}, graph"] = {
+            "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+        if (p, b) == KS_ROW:
+            times["key_switch"] = (ms, plain_ms)
+        torch.cuda.empty_cache()
+    # The plain version's limb form at uint8 B 256 (≈ 21 GB) is not the
+    # later phases' peak memory.
+    torch.cuda.reset_peak_memory_stats()
 
 
 def k2_form(fn, b: int, what: str) -> tuple:
@@ -1250,7 +1355,7 @@ def pbs_phase(gen, dev, p, batch: int, f, steady: bool,
     peak = torch.cuda.max_memory_allocated()
     print(f"   launches over {calls} bootstrap call(s): {launches}; peak "
           f"memory {peak} B", flush=True)
-    check_counts(launches, dict.fromkeys(kernels, p.lwe_n), calls)
+    check_counts(launches, dict.fromkeys(kernels, p.lwe_n), calls, calls)
 
     check(out.shape == (batch, p.lwe_n + 1) and out.dtype == torch.int32,
           f"unexpected output {tuple(out.shape)} {out.dtype}")
@@ -1330,7 +1435,7 @@ def block_nand_phase(gen, dev, p, bits_a, bits_b) -> dict:
         peak = torch.cuda.max_memory_allocated()
         print(f"   launches over 2 bootstrap calls: {launches}; peak memory "
               f"{peak} B", flush=True)
-        check_counts(launches, dict.fromkeys(kernels, per_call), 2)
+        check_counts(launches, dict.fromkeys(kernels, per_call), 2, 2)
         check(torch.equal(res, res2), "two runs of one batch disagree")
         check(res.shape == (batch, p.lwe_n + 1), "unexpected output shape")
         dec = cipher.lwe_decrypt_bool(res, sk.lv0).cpu().numpy()
@@ -1407,7 +1512,7 @@ def per_bit_routes_phase(p, ck, sk, ct_a, ct_b, bits_a, bits_b,
         peak = torch.cuda.max_memory_allocated()
         print(f"   launches over 2 bootstrap calls: {launches}; peak memory "
               f"{peak} B", flush=True)
-        check_counts(launches, per_call, 2)
+        check_counts(launches, per_call, 2, 2)
         if nand_out is None:
             nand_out = res
         check(torch.equal(res, res2) and torch.equal(res, nand_out),
@@ -1606,14 +1711,40 @@ def portable_phase(gen, dev, p, ck, ct_a, ct_b, nand_out, and_or, u6_run,
     return out
 
 
+# The key switches of the last timed_run that asked for the kernel: calls
+# of ops.keyswitch.digit_table_switch on the card without ``plain`` (the
+# plain path and the portable routes ask for the plain version).
+ASKED_SWITCHES = [0]
+
+
+@contextlib.contextmanager
+def asked_switches():
+    """Count into ASKED_SWITCHES, from 0, the key switches that ask for
+    the kernel while the block runs."""
+    switch = keyswitch.digit_table_switch
+
+    def counted(table, ct, basebit, t, plain=False):
+        if ct.device.type == "cuda" and not plain:
+            ASKED_SWITCHES[0] += 1
+        return switch(table, ct, basebit, t, plain)
+    ASKED_SWITCHES[0] = 0
+    keyswitch.digit_table_switch = counted
+    try:
+        yield
+    finally:
+        keyswitch.digit_table_switch = switch
+
+
 def timed_run(label: str, fn) -> tuple:
     """fn() once with the launch counters set to 0 just before and read
-    just after: (result, seconds on the host clock around a synchronize,
-    launches)."""
+    just after, its key switches that ask for the kernel counted
+    (:func:`asked_switches`): (result, seconds on the host clock around a
+    synchronize, launches)."""
     torch.cuda.synchronize()
     cuda_t.reset_launch_counts()
     t1 = time.perf_counter()
-    out = fn()
+    with asked_switches():
+        out = fn()
     secs = done(t1, f"{label}: ")
     launches = dict(cuda_t.launch_counts)
     print(f"   launches: {launches}", flush=True)
@@ -1688,7 +1819,7 @@ def circuits_phase(gen, p, ck, sk) -> dict:
                 gates.constant(p, other, (BATCH,), device=c_sel.device))
     (c_not, c_copy, c_true, c_const), _, launches = timed_run(
         "NOT, COPY, constant", no_launch)
-    check_counts(launches, {}, 0)
+    check_counts(launches, {}, 0, 0)
     bool_margin(c_not, sk.lv0, ~sel, "NOT")
     bool_margin(c_copy, sk.lv0, then, "COPY")
     check(torch.equal(c_copy, c_then) and c_copy.data_ptr() != c_then.data_ptr(),
@@ -1706,7 +1837,7 @@ def circuits_phase(gen, p, ck, sk) -> dict:
     want = np.where(sel, then, other)
     mux, secs, launches = timed_run(
         "MUX batch", lambda: gates.MUX(ck, c_sel, c_then, c_else))
-    check_counts(launches, dict.fromkeys(K1K2, n), 2)
+    check_counts(launches, dict.fromkeys(K1K2, n), 2, 1)
     sig = bool_margin(mux, sk.lv0, want, "MUX")
     out["mux"] = {"batch_s": secs, "mux_per_s": BATCH / secs,
                   "margin_sigmas": sig, "launches": launches}
@@ -1714,7 +1845,7 @@ def circuits_phase(gen, p, ck, sk) -> dict:
     mux3, secs, launches = timed_run(
         "MUX_3GATE batch", lambda: gates.MUX_3GATE(ck, c_sel, c_then,
                                                    c_else))
-    check_counts(launches, dict.fromkeys(K1K2, n), 3)
+    check_counts(launches, dict.fromkeys(K1K2, n), 3, 3)
     sig = bool_margin(mux3, sk.lv0, want, "MUX_3GATE")
     check(torch.equal(cipher.lwe_decrypt_bool(mux3, sk.lv0),
                       cipher.lwe_decrypt_bool(mux, sk.lv0)),
@@ -1734,7 +1865,7 @@ def circuits_phase(gen, p, ck, sk) -> dict:
     (s_bits, carry), secs, launches = timed_run(
         "8-bit ripple_carry_add batch",
         lambda: adders.ripple_carry_add(ck, ca, cb))
-    check_counts(launches, dict.fromkeys(K1K2, n), 40)
+    check_counts(launches, dict.fromkeys(K1K2, n), 40, 40)
     sig = bool_margin(s_bits, sk.lv0, sum_bits, "ripple_carry_add sum bits")
     bool_margin(carry, sk.lv0, total >= 256, "ripple_carry_add carry")
     dec = bitutils.decrypt_bits(s_bits, sk.lv0).cpu().numpy()
@@ -1752,7 +1883,7 @@ def circuits_phase(gen, p, ck, sk) -> dict:
     (m_bits, m_carry), secs, launches = timed_run(
         "8-bit ripple_add_manylut batch",
         lambda: adders.ripple_add_manylut(ck, ma, mb))
-    check_counts(launches, dict.fromkeys(K1K2, n), 8)
+    check_counts(launches, dict.fromkeys(K1K2, n), 8, 8)
     sig = message_margin(m_bits, sk.lv0, sum_bits.astype(np.int64), 8,
                          "ripple_add_manylut sum bits", MANY_LUT_MIN_SIGMAS)
     message_margin(m_carry, sk.lv0, (total >= 256).astype(np.int64), 8,
@@ -1798,7 +1929,7 @@ def uint5_phase(gen, dev) -> dict:
     (s_lo, s_hi), secs, launches = timed_run(
         "add8_pbs batch", lambda: adders.add8_pbs(ck, *nib))
     peak = torch.cuda.max_memory_allocated()
-    check_counts(launches, dict.fromkeys(K1K2, n), 3)
+    check_counts(launches, dict.fromkeys(K1K2, n), 3, 3)
     lo = (va & 0xF) + (vb & 0xF)
     want_lo, want_hi = lo % 16, ((va >> 4) + (vb >> 4) + (lo >= 16)) % 16
     got = ((cipher.lwe_decrypt_message(s_hi, m, sk.lv0).cpu().numpy() << 4)
@@ -1883,7 +2014,7 @@ def uint5_phase(gen, dev) -> dict:
         res, secs, launches = timed_run(
             f"comparators.{name} batch",
             lambda: getattr(comparators, name)(ck, ct_a, ct_b, m))
-        check_counts(launches, dict.fromkeys(K1K2, n), per)
+        check_counts(launches, dict.fromkeys(K1K2, n), per, per)
         sig = bool_margin(res, sk.lv0, truth, f"comparators.{name}")
         out["comparators"][name] = {
             "batch_s": secs, "comparisons_per_s": U5_BATCH / secs,
@@ -1930,7 +2061,7 @@ def proxy_phase(gen, dev, p) -> dict:
             ("asymmetric", rk_asym, ASYM_MIN_SIGMAS, ASYM_MAX_WRONG)):
         res, secs, launches = timed_run(
             f"reencrypt {label}", lambda: proxyreenc.reencrypt(rk, ct))
-        check_counts(launches, {}, 0)
+        check_counts(launches, {}, 0, 1)
         sig = bool_margin(res, bob, bits, f"reencrypt {label}", floor,
                           max_wrong)
         cpu = proxyreenc.reencrypt(
@@ -1966,7 +2097,7 @@ def mesh_phase(dev, p, ck, ct_a, ct_b, want, base_rate: float) -> dict:
         res, secs, launches = timed_run(
             f"sharded_bootstrap, {len(mesh)} shard(s) ({label})",
             lambda: parallel.sharded_bootstrap(mesh, ck, prepared))
-        check_counts(launches, per_shard, len(mesh))
+        check_counts(launches, per_shard, len(mesh), len(mesh))
         check(torch.equal(res, want),
               f"the mesh ({label}) disagrees with phase 5's words")
         print(f"   {label}: {BATCH / secs:.1f} gates/s (phase 5 steady "
@@ -1978,7 +2109,7 @@ def mesh_phase(dev, p, ck, ct_a, ct_b, want, base_rate: float) -> dict:
         "sharded_bootstrap_cuda without the key switch",
         lambda: parallel.sharded_bootstrap_cuda(mesh, ck, prepared,
                                                 key_switch=False))
-    check_counts(launches, per_shard, len(mesh))
+    check_counts(launches, per_shard, len(mesh), 0)
     check(torch.equal(res, engine.bootstrap_without_key_switch(ck, prepared)),
           "sharded_bootstrap_cuda(key_switch=False) disagrees with "
           "engine.bootstrap_without_key_switch")
@@ -1990,7 +2121,7 @@ def mesh_phase(dev, p, ck, ct_a, ct_b, want, base_rate: float) -> dict:
                 f"one shard on {last} with cuda:0 current",
                 lambda: parallel.sharded_bootstrap(
                     parallel.make_mesh([last]), ck, prepared))
-        check_counts(launches, per_shard, 1)
+        check_counts(launches, per_shard, 1, 1)
         check(torch.equal(res, want), f"the shard on {last} disagrees")
         out["cross_card"] = {"device": str(last), "batch_s": secs}
     else:
@@ -2051,7 +2182,8 @@ def examples_phase() -> dict:
         if rc:
             print("\n".join(lines), flush=True)
         check(rc == 0, f"{name} {' '.join(argv)} returned {rc}")
-        check_counts(launches, _k1k2(steps, small=steps, fused=fused), 1)
+        check_counts(launches, _k1k2(steps, small=steps, fused=fused), 1,
+                     None)
         print(f"   {name}: {lines[-1]}", flush=True)
         out[name] = {"argv": argv, "seconds": secs, "launches": launches}
     return out
@@ -2183,7 +2315,7 @@ def entry_points_phase(seed: int, dev, card: dict) -> dict:
         for rec in recs:
             check(rec["device"] == card,
                   f"{path}: device {rec['device']}, not {card}")
-        check_counts(launches, want_launches, 1)
+        check_counts(launches, want_launches, 1, None)
         t1 = time.perf_counter()
         for call in calls:
             check(torch.equal(call.pop("plain")(), call.pop("words")),
@@ -2247,7 +2379,7 @@ def entry_points_phase(seed: int, dev, card: dict) -> dict:
         for p in (p0, params.P128_FAST):
             rec, secs, launches = timed_run(
                 p.name, lambda: nm.measure_profile(p, 512, dev, seed=seed)[0])
-            check_counts(launches, dict.fromkeys(K1K2, p.lwe_n), 1)
+            check_counts(launches, dict.fromkeys(K1K2, p.lwe_n), 1, 1)
             check(rec["wrong_answers"] == 0
                   and rec["margin_sigmas"] >= MIN_SIGMAS, f"{p.name}: {rec}")
             print(f"   {json.dumps(rec)}", flush=True)
@@ -2316,6 +2448,7 @@ def main() -> int:
                                                        errs, times))
     rotation_graph_against_eager(dev, args.seed, shape_times)
     fused_step_against_pair(dev, args.seed, errs, times, shape_times)
+    key_switch_against_plain(dev, args.seed, errs, times, shape_times)
     done(t0)
 
     p = params.P128_FAST
@@ -2358,7 +2491,7 @@ def main() -> int:
           flush=True)
     # the one-gate batch's steps take the fused step
     check_counts(launches, _k1k2(p.lwe_n * calls, small=p.lwe_n,
-                                 fused=p.lwe_n), 1)
+                                 fused=p.lwe_n), 1, calls)
 
     check(out.shape == (BATCH, p.lwe_n + 1) and out.dtype == torch.int32,
           f"unexpected output {tuple(out.shape)} {out.dtype}")
@@ -2401,7 +2534,7 @@ def main() -> int:
     and_or_s = done(t1, "batch ")
     and_or_launches = dict(cuda_t.launch_counts)
     print(f"   launches: {and_or_launches}", flush=True)
-    check_counts(and_or_launches, dict.fromkeys(K1K2, p.lwe_n), 1)
+    check_counts(and_or_launches, dict.fromkeys(K1K2, p.lwe_n), 1, 1)
     and_or_sigmas = []
     for name, got, truth in (("AND", out_and, bits_a & bits_b),
                              ("OR", out_or, bits_a | bits_b)):
@@ -2575,7 +2708,8 @@ def main() -> int:
         "rotate_decompose": ("rotdec.cu", "pallas_rotate.py:99",
                              (p, BATCH, 12)),
         "extprod": ("extprod.cu", "pallas_extprod.py:180", (p, BATCH, 12)),
-        "pipe_step": ("pipe.cu", "pallas_pipe.py:174", (p, PIPE_HALF, 0))}
+        "pipe_step": ("pipe.cu", "pallas_pipe.py:174", (p, PIPE_HALF, 0)),
+        "key_switch": ("keyswitch.cu", "keyswitch.py:53", (*KS_ROW, 0))}
     entries = []
     for name, (src, rep, shape) in kernels.items():
         bound_ms, bound_by = kernel_bound(name, *shape)

@@ -3,8 +3,9 @@
 
 One code path serves both devices: blind rotation (ops/blindrotate.py)
 -> sample extraction -> identity key switch, as the JAX package's
-``_bootstrap_core_t``.  The step kernels inside the blind rotation run
-their plain versions on CPU tensors and the Hopper kernels on CUDA tensors.
+``_bootstrap_core_t``.  The step kernels inside the blind rotation, and
+the key switch's gather-and-sum, run their plain versions on CPU tensors
+and the Hopper kernels on CUDA tensors.
 The kernels mask a ragged batch themselves, so no batch padding is needed.
 
 Routing (:func:`_route`) follows the JAX package's TPU dispatch
@@ -149,7 +150,11 @@ def _bootstrap(ck: CloudKey, ct: torch.Tensor, testvec, key_switch: bool,
             lv1 = (sample_extract(rotated, 0) if outputs is None else
                    torch.stack([sample_extract(rotated, t)
                                 for t in range(outputs)]))
-        out = identity_key_switch(p, ck.ksk, lv1) if key_switch else lv1
+        # The plain path and the portable routes launch no kernel: their
+        # key switch is the plain version too.
+        out = (identity_key_switch(p, ck.ksk, lv1,
+                                   plain=plain or ROUTES[route].portable)
+               if key_switch else lv1)
     return out.reshape(out.shape[:-2] + lead + out.shape[-1:])
 
 
@@ -158,8 +163,8 @@ def bootstrap(ck: CloudKey, ct: torch.Tensor, testvec=None,
     """Full bootstrap: (..., lwe_n+1) -> (..., lwe_n+1)
     (evaluator/evaluator.go:139-148).  ``testvec``: the cloud key's test
     vector by default, else a look-up table, shared or per ciphertext
-    (lut.Generator).  ``plain`` runs the step kernels' plain versions on
-    any device."""
+    (lut.Generator).  ``plain`` runs the step kernels' and the key
+    switch's plain versions on any device."""
     return _bootstrap(ck, ct, testvec, key_switch=True, plain=plain)
 
 

@@ -31,7 +31,8 @@ CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 SOURCES = ("rotdec_t.cu", "extprod_t.cu", "rotdec_ext_t.cu",
            "extprod_ext_t.cu", "rotdec_ext.cu", "rotdec.cu", "extprod.cu",
-           "step.cu", "pipe.cu", "extprod_t_small.cu", "step_t_small.cu")
+           "step.cu", "pipe.cu", "extprod_t_small.cu", "step_t_small.cu",
+           "keyswitch.cu")
 HEADERS = ("extprod_tile.cuh", "rotdec_col.cuh", "rotdec_row.cuh",
            "extprod_t_small.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -76,6 +77,10 @@ _SIGNATURES = {
                        ctypes.c_uint32, _I, _I, _I, _I, _P),
     # lo, smem, blocks (int*)
     "tfhe_pipe_occupancy": (_I, _I, ctypes.POINTER(_I)),
+    # table, ct, out, n, t, basebit, w, b, stream (the key switch); and
+    # whether it takes n, t, basebit, w, b
+    "tfhe_key_switch": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "tfhe_key_switch_fits": (_I, _I, _I, _I, _I),
 }
 
 _lib = None           # the loaded library: built and loaded once per process

@@ -84,8 +84,13 @@ launch_counts = tracing.launch_counts
 
 
 def reset_launch_counts() -> None:
+    """Zero the launch counts, and the key switches
+    (``tracing.key_switch_counts``) whose share ``launch_counts
+    ["key_switch"]`` is."""
     for name in launch_counts:
         launch_counts[name] = 0
+    tracing.key_switch_counts.update(dict.fromkeys(
+        tracing.key_switch_counts, 0))
 
 
 def launch(name: str, entry: str, device: torch.device, *args) -> None:

@@ -43,8 +43,11 @@ span                       covers
 ``engine.sample_extract``  the sample extraction
 ``key_switch``             ``ops.keyswitch.identity_key_switch``
 ``reencrypt``              ``proxyreenc.reencrypt``
-``key_switch.limb_form``   the table's float32 limb form (a call)
-``key_switch.contract``    the one-hot contraction, all chunks
+``key_switch.limb_form``   the plain path: the table's float32 limb form
+                           (a call)
+``key_switch.contract``    the plain path: the one-hot contraction, all
+                           chunks
+``key_switch.gather``      the kernel path: the gather-and-sum launch
 =========================  ==============================================
 
 **Counters** (while on): ``rotation.steps``, the blind-rotation steps run
@@ -60,10 +63,18 @@ stream, the ctypes call).  The program's kernel launches are
 
 * ``key_switch.transient_bytes`` (a peak, :func:`note_peak`): the largest,
   over a call's chunks and all calls since :func:`reset`, of the bytes of
-  the tensors alive at the key switch's product (the table's int8 limbs
-  and float32 limb form, the digits, the float32 one-hot, the product),
-  read from the tensors; while on, also the ``key_switch`` (``reencrypt``)
-  span's attribute ``transient_bytes`` for that call;
+  the tensors the key switch holds beside its table and input, read from
+  the tensors: on the plain path those alive at its product (the table's
+  int8 limbs and float32 limb form, the digits, the float32 one-hot, the
+  product), on the kernel path those alive at its launch (the output, into
+  which the kernel adds its partial sums); while on, also the
+  ``key_switch`` (``reencrypt``) span's attribute ``transient_bytes`` for
+  that call;
+* the key switches, :data:`key_switch_counts`: every
+  ``ops.keyswitch.digit_table_switch`` call (``switches``: the key switch
+  and proxy re-encryption), of which :data:`launch_counts`'s
+  ``key_switch`` counts those that launched the gather-and-sum kernel;
+  :func:`reset` and ``ops.cuda_t.reset_launch_counts`` zero it;
 * the rotation counts, :data:`rotation_counts`
   (``ops.blindrotate.rotation_counts``): the blind rotations run, and of
   them those whose steps were replayed from a CUDA graph; and
@@ -78,11 +89,11 @@ stream, the ctypes call).  The program's kernel launches are
   not included).  These describe the process: :func:`reset` keeps them.
 
 **Cost.** Off, a span site costs a flag check and a set lookup, a launch a
-flag check and a dict lookup, and a key switch the bytes of five tensors
-summed.  On, a span costs about 11 µs on the host (``record_function``)
-and two CUDA events; a launch two clock reads.  Nothing is recorded per
-rotation step.  At most :data:`MAX_SPANS` records are kept; the rest are
-counted in ``dropped``.
+flag check and a dict lookup, and a key switch a count update and the
+bytes of its tensors summed.  On, a span costs about 11 µs on the host
+(``record_function``) and two CUDA events; a launch two clock reads.
+Nothing is recorded per rotation step.  At most :data:`MAX_SPANS` records
+are kept; the rest are counted in ``dropped``.
 """
 
 from __future__ import annotations
@@ -109,18 +120,22 @@ _first_run: dict = {}        # span site (or library.*) -> host seconds
 # The always-kept counts, which the ops add to: ops.cuda_t.launch_counts
 # and ops.blindrotate.rotation_counts are these objects (the benchmark's
 # readers read them there).
-# Kernel launches by wrapper name (ops.cuda_t.launch).  Two keys are
-# sub-counts, no kernels of their own (SUB_COUNTS): "extprod_t_small"
-# counts the "extprod_t" launches that took K2's small-batch form, and
-# "step_t_small" those of them that also did K1's work (the fused step),
-# so a total of launches leaves both out.
+# Kernel launches by wrapper name (ops.cuda_t.launch; "key_switch" is
+# ops.keyswitch's gather-and-sum).  Two keys are sub-counts, no kernels of
+# their own (SUB_COUNTS): "extprod_t_small" counts the "extprod_t" launches
+# that took K2's small-batch form, and "step_t_small" those of them that
+# also did K1's work (the fused step), so a total of launches leaves both
+# out.
 launch_counts = {"rotate_decompose_t": 0, "extprod_t": 0,
                  "rotate_decompose_ext_t": 0, "extprod_ext_t": 0,
                  "rotate_decompose_ext": 0, "rotate_decompose": 0,
                  "extprod": 0, "fused_rotate_step": 0, "pipe_step": 0,
-                 "extprod_t_small": 0, "step_t_small": 0}
+                 "extprod_t_small": 0, "step_t_small": 0, "key_switch": 0}
 SUB_COUNTS = ("extprod_t_small", "step_t_small")
 rotation_counts = {"rotations": 0, "replayed": 0}
+# ops.keyswitch.digit_table_switch's calls (launch_counts["key_switch"]:
+# those that took the kernel).
+key_switch_counts = {"switches": 0}
 # The rotations by route (a name of ops.blindrotate.ROUTES): a route
 # appears at its first rotation since reset().
 route_counts: dict = {}
@@ -262,8 +277,8 @@ def note_first_run(name: str, seconds: float) -> None:
 
 def reset() -> None:
     """Drop the span records, counters and peaks and zero the rotation
-    counts, overall and by route (not the first-run records, which
-    describe the process)."""
+    counts, overall and by route, and the key-switch counts (not the
+    first-run records, which describe the process)."""
     global _dropped
     _spans.clear()
     _counters.clear()
@@ -271,14 +286,16 @@ def reset() -> None:
     _dropped = 0
     rotation_counts.update(dict.fromkeys(rotation_counts, 0))
     route_counts.clear()
+    key_switch_counts.update(dict.fromkeys(key_switch_counts, 0))
 
 
 def snapshot() -> dict:
     """What was recorded since :func:`reset`: ``spans`` (records, oldest
     first, each with ``device_ms``: None off a CUDA device), ``counters``,
     ``peaks``, ``rotations`` (:data:`rotation_counts`, and under
-    ``by_route`` :data:`route_counts`), ``launches``
-    (:data:`launch_counts` as they stand), ``first_run_s``,
+    ``by_route`` :data:`route_counts`), ``key_switch``
+    (:data:`key_switch_counts`), ``launches`` (:data:`launch_counts` as
+    they stand), ``first_run_s``,
     ``first_launch_s`` and ``dropped``.  Waits for the card where a span's
     end event has not completed."""
     for rec in _spans:
@@ -291,6 +308,7 @@ def snapshot() -> dict:
     return {"spans": [dict(rec) for rec in _spans],
             "counters": dict(_counters), "peaks": dict(_peaks),
             "rotations": {**rotation_counts, "by_route": dict(route_counts)},
+            "key_switch": dict(key_switch_counts),
             "launches": dict(launch_counts),
             "first_run_s": dict(_first_run),
             "first_launch_s": {f"{entry}@cuda:{index}": s

@@ -112,7 +112,8 @@ def test_kernel_module_imports_without_nvcc():
                                         "fused_rotate_step": 0,
                                         "pipe_step": 0,
                                         "extprod_t_small": 0,
-                                        "step_t_small": 0}
+                                        "step_t_small": 0,
+                                        "key_switch": 0}
         assert _build._lib is None
         assert not any(m == "jax" or m.startswith(("jax.", "go_tfhe_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)

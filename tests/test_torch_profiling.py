@@ -133,6 +133,11 @@ BOUND_ROWS = [
     ("extprod_t_small", "uint5", 1, 0, 0.0010, "operations"),
     ("step_t_small", "128bit", 1, 0, 0.0008, "operations"),
     ("step_t_small", "uint5", 1, 0, 0.0010, "operations"),
+    ("key_switch", "128bit", 1, 0, 0.0077, "bytes"),
+    ("key_switch", "128bit", 4096, 0, 1.582, "operations"),
+    ("key_switch", "uint5", 1, 0, 0.0079, "bytes"),
+    ("key_switch", "uint5", 2048, 0, 0.8064, "operations"),
+    ("key_switch", "uint8_centered", 256, 0, 1.0912, "bytes"),
 ]
 
 
