@@ -52,15 +52,15 @@ def control_run(cell: harness.Cell, seed: int, calls: int, key_bits: int,
     r.outs, r.digests, prev = [], [], None
     if tr.chain:
         for k in range(calls):
-            out = control(*tr.reference_args(tr.request(r.inputs, k, prev),
-                                             tv))
+            out = tr.reference(control, tr.request(r.inputs, k, prev), tv)
             r.outs.append(out)
             prev = out
         r.calls = calls
     else:
-        for req in r.inputs["batches"]:
+        for k in range(tr.mix["distinct_batches"]):
             r.digests.append(harness.digest(
-                control(*tr.reference_args(req, tv)), r.weights))
+                tr.reference(control, tr.request(r.inputs, k), tv),
+                r.weights))
         r.calls = len(r.digests)
     control_s = time.time() - t0
     del control

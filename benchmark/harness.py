@@ -6,14 +6,22 @@ metric is data found by name: ``BENCHMARK.json`` at the checkout's root
 names the cell; its configuration file (``configs/<name>.json``) states the
 parameters, the program's profile of them and the plain reference (its
 ``reference``: a module's path, which every run is judged by); its mix
-(``traffic/<name>.json``) is read by :mod:`benchmark.traffic`; each
-per-layer metric is a reader ``metrics/<name>.py`` whose ``read(obs)``
-returns a number, or None when the run gave it nothing to read.
+(``traffic/<name>.json``) is read by :mod:`benchmark.traffic`, and the
+mix's ``op`` names the module ``ops/<op>.py`` that makes its requests,
+calls the program and gives the reference's outputs (the interface is in
+:mod:`benchmark.traffic`'s docstring); each per-layer metric is a reader
+``metrics/<name>.py`` whose ``read(obs)`` returns a number, or None when
+the run gave it nothing to read.
+
+A new op is one file under ``ops/`` and a mix that names it: the harness
+asks the op how many ``engine.bootstrap`` calls a request makes, and
+judges every output ciphertext that its calls return.
 
 The program is measured through its public entries only: the key material
-goes in through ``keys.cloud_key_from_numpy``, a call is ``gates.<GATE>`` or
-``lut.bootstrap_func``, and the layer spans time ``engine.bootstrap`` and
-``engine.bootstrap_without_key_switch``.
+goes in through ``keys.cloud_key_from_numpy``, a call is the op's
+(``ops/gate.py``: ``gates.<GATE>``; ``ops/lut.py``:
+``lut.bootstrap_func``), and the layer spans time ``engine.bootstrap`` and
+``engine.bootstrap_without_key_switch`` on the op's arguments.
 """
 
 from __future__ import annotations
@@ -61,6 +69,7 @@ class Cell:
     mix: dict             # the traffic mix
     end_to_end: list      # BENCHMARK.json entries this cell reports
     per_layer: list
+    ops_dir: str = traffic.OPS_DIR      # where the mix's op is found
 
 
 def _applies(metric: dict, cell: str, reported: set) -> bool:
@@ -128,6 +137,20 @@ def check_profile(port_params, params: dict) -> None:
                 f"states {params[field]!r}")
 
 
+def _reset_program_records() -> None:
+    """Zero the program's records that the readers of source
+    ``program_counter`` read: ``utils/tracing``'s spans, peaks and counts,
+    and ``ops/cuda_t``'s launch counts.  A program without them has
+    nothing to zero."""
+    try:
+        tracing = importlib.import_module("go_tfhe_tpu_torch.utils.tracing")
+        cuda_t = importlib.import_module("go_tfhe_tpu_torch.ops.cuda_t")
+    except ImportError:
+        return
+    tracing.reset()
+    cuda_t.reset_launch_counts()
+
+
 def _sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
@@ -174,7 +197,7 @@ class Run:
         ref = self.cell.ref
         self.prm = ref.Params.from_config(self.cell.config["params"])
         self.traffic = traffic.Traffic(self.cell.mix, ref, self.prm,
-                                       self.device)
+                                       self.device, self.cell.ops_dir)
         gen = torch.Generator(device=self.device).manual_seed(self.seed)
         keys = ref.make_keys(gen, self.prm)
         self.inputs = self.traffic.make_inputs(gen, keys)
@@ -188,8 +211,8 @@ class Run:
 
     def setup(self) -> None:
         """Data, then the program's set-up from the raw key and one warm
-        call of the cell's own shapes.  The memory peak counts from the
-        hand-over of the key on."""
+        call of the cell's own shapes.  The memory peak and the program's
+        records count from the hand-over of the key on."""
         self.make_data()
         t0 = time.time()
         import go_tfhe_tpu_torch as port
@@ -199,6 +222,7 @@ class Run:
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(self.device)
+        _reset_program_records()
         t0 = self._mark("import_program_s", t0)
         self.ck = port.keys.cloud_key_from_numpy(
             cfg["profile"], self.raw["testvec"], self.raw["ksk"],
@@ -326,54 +350,50 @@ class Run:
     def judge(self) -> dict:
         """The plain reference over what the window produced: every call's
         outputs, against the reference's on the same inputs.  Returns
-        {"attempted", "failed", "wrong_plaintexts", "reference_s"}."""
+        {"attempted": the output ciphertexts compared, "failed",
+        "wrong_plaintexts", "reference_s"}."""
         t0 = time.time()
         dev, ref = self.device, self.cell.ref
         boot = ref.Bootstrap(
             self.prm, torch.from_numpy(self.raw["bsk"].view(np.int32)).to(dev),
             torch.from_numpy(self.raw["ksk"].view(np.int32)).to(dev))
         tv = torch.from_numpy(self.raw["testvec"].view(np.int32)).to(dev)
-        tr, b = self.traffic, self.traffic.batch
+        tr, b, inputs = self.traffic, self.traffic.batch, self.inputs
         if tr.chain:
             reqs, prev = [], None
             for k in range(self.calls):
-                reqs.append(tr.request(self.inputs, k, prev))
+                reqs.append(tr.request(inputs, k, prev))
                 prev = self.outs[k]
-            x, t = tr.reference_args(
+            want = tr.reference(
+                boot,
                 {key: torch.cat([r[key] for r in reqs]) for key in reqs[0]},
                 tv)
-            want = boot(x, t)
-            got = torch.cat(self.outs)
-            failed = int((want != got).any(-1).sum())
+            mismatched = (want != torch.cat(self.outs)).any(-1)
+            attempted, failed = mismatched.numel(), int(mismatched.sum())
             # the plaintexts of the chain, step by step
-            decrypted, wrong = tr.decrypt(want, self.keys), 0
-            plain = self.inputs["plain_first"]
-            plain = plain > 0 if tr.gate else plain
+            decrypted, plain, wrong = tr.decrypt(want, self.keys), None, 0
             for k in range(self.calls):
-                fresh = self.inputs.get("plain_fresh")
-                plain = tr.expected(
-                    plain, None if fresh is None else fresh[k % len(fresh)])
+                plain = tr.expected(inputs, k, plain)
                 wrong += int((decrypted[k * b:(k + 1) * b] != plain).sum())
         else:
-            batches = self.inputs["batches"]
+            distinct = tr.mix["distinct_batches"]
             want_dig, wrong = [], 0
             deviations = []
-            for req in batches:
-                want = boot(*tr.reference_args(req, tv))
+            for k in range(distinct):
+                want = tr.reference(boot, tr.request(inputs, k), tv)
                 want_dig.append(digest(want, self.weights))
-                expected = tr.expected(req["plain_a"], req.get("plain_b"))
+                expected = tr.expected(inputs, k)
                 wrong += int((tr.decrypt(want, self.keys) != expected).sum())
-                if tr.gate:
-                    ideal = ref.encode_bool(expected)
-                    off = (ref.phase(want, self.keys["lv0"]) - ideal
-                           + (1 << 31)) % (1 << 32) - (1 << 31)
-                    deviations += off.tolist()
+                off = tr.deviations(want, expected, self.keys)
+                if off is not None:
+                    deviations += off
             if deviations:
                 self.obs["noise_sigmas"] = yardstick.noise_sigmas(deviations)
-            failed = sum(int((d != want_dig[k % len(batches)]).sum())
+            attempted = sum(d.numel() for d in self.digests)
+            failed = sum(int((d != want_dig[k % distinct]).sum())
                          for k, d in enumerate(self.digests))
         _sync(dev)
-        return {"attempted": self.calls * b, "failed": failed,
+        return {"attempted": attempted, "failed": failed,
                 "wrong_plaintexts": wrong, "reference_s": time.time() - t0}
 
     def free_program(self) -> None:
@@ -387,8 +407,8 @@ class Run:
     def end_to_end(self) -> dict:
         lat_ms = [1e3 * s for s in self.latency_s]
         values = {
-            "bootstraps_per_s": self.calls * self.traffic.batch
-            / self.window_s,
+            "bootstraps_per_s": self.calls * self.traffic.bootstrap_calls()
+            * self.traffic.batch / self.window_s,
             "latency_p50_ms": yardstick.percentile(lat_ms, 50),
             "latency_p95_ms": yardstick.percentile(lat_ms, 95),
             "peak_mem_gib": self.peak_bytes / GIB,
@@ -399,7 +419,8 @@ class Run:
 
     def per_layer(self) -> dict:
         self.obs.update(params=self.cell.config["params"],
-                        batch=self.traffic.batch, calls=self.calls)
+                        batch=self.traffic.batch, calls=self.calls,
+                        bootstrap_calls=self.traffic.bootstrap_calls())
         out = {}
         for m in self.cell.per_layer:
             value = load_reader(m["name"]).read(self.obs)

@@ -5,10 +5,11 @@ a step are K6's (``blind_rotation.k6_roofline.step_bytes``): the int32
 accumulator and the B int32 rotation amounts read once, and the int8
 digits written once, 2L * nd planes of k*N rows of B.  The scratch of its
 two-pass plan is not counted, so the share reads the same work whatever
-plan runs it.  Those bytes for lwe_n steps of each profiled call, over
-3.35 TB/s, are the least time; the share is that over the summed device
-seconds of the profile's K4 entries: ``rotdec_kernel`` (the staged-column
-body of ``csrc/rotdec_col.cuh``) and ``untile_kernel`` (the second pass).
+plan runs it.  Those bytes for lwe_n steps of each bootstrap call
+(``obs["bootstrap_calls"]`` a profiled call), over 3.35 TB/s, are the
+least time; the share is that over the summed device seconds of the
+profile's K4 entries: ``rotdec_kernel`` (the staged-column body of
+``csrc/rotdec_col.cuh``) and ``untile_kernel`` (the second pass).
 
 K4 runs the same kernel as K1 (``rotdec_col::rotdec_kernel``), so the
 name match is sound only in a cell whose rotation runs no K1, one at
@@ -30,7 +31,7 @@ def read(obs):
     seconds = sum(s for name, s in prof["device_ops"] if KERNEL.search(name))
     if not seconds:
         return None
-    steps = obs["params"]["lwe_n"] * prof["calls"]
+    steps = obs["params"]["lwe_n"] * prof["calls"] * obs["bootstrap_calls"]
     least = harness.load_reader("blind_rotation.k6_roofline").step_bytes(
         obs["params"], obs["batch"]) * steps
     return 100.0 * least / yardstick.H100_HBM_BYTES / seconds

@@ -3,7 +3,8 @@ K5 (``go_tfhe_tpu_torch/csrc/extprod_ext_t.cu``, ``extprod_ext_t_kernel``)
 is the transposed external product of the extended rotation, all k blocks
 against one band on the s8 tensor cores: its least time for the profiled
 calls is the rotation's int8 operations (the yardstick's ``rotation_ops``
-of the cell's batch, k counted) times the calls over 1,979 TOP/s; the
+of the cell's batch, k counted) times the calls and each call's bootstrap
+calls (``obs["bootstrap_calls"]``, the op's) over 1,979 TOP/s; the
 share is that over the summed device seconds of the profile's
 ``extprod_ext_t_kernel`` entries (not K2's ``extprod_t_kernel`` nor K8's
 ``extprod_kernel``).  None where K5 is not among the profile's ten
@@ -23,5 +24,6 @@ def read(obs):
     seconds = sum(s for name, s in prof["device_ops"] if KERNEL.search(name))
     if not seconds:
         return None
-    ops = yardstick.rotation_ops(obs["params"], obs["batch"]) * prof["calls"]
+    ops = (yardstick.rotation_ops(obs["params"], obs["batch"])
+           * prof["calls"] * obs["bootstrap_calls"])
     return 100.0 * ops / yardstick.H100_INT8_OPS / seconds

@@ -4,10 +4,11 @@ rotates and decomposes the extended rotation's (2, B, kN) accumulator once
 a step.  Its least bytes a step: the int32 accumulator and the B int32
 rotation amounts read once, and the int8 digits written once, 2L * nd
 planes of B*k rows of N (nd: the signed base-256 limbs of a digit).  Those
-bytes for lwe_n steps of each profiled call, over 3.35 TB/s, are the least
-time; the share is that over the summed device seconds of the profile's
-``rotdec_ext_kernel`` entries.  None where K6 is not among the profile's
-ten costliest device operations."""
+bytes for lwe_n steps of each bootstrap call (``obs["bootstrap_calls"]``
+a profiled call), over 3.35 TB/s, are the least time; the share is that
+over the summed device seconds of the profile's ``rotdec_ext_kernel``
+entries.  None where K6 is not among the profile's ten costliest device
+operations."""
 
 import re
 
@@ -32,6 +33,6 @@ def read(obs):
     seconds = sum(s for name, s in prof["device_ops"] if KERNEL.search(name))
     if not seconds:
         return None
-    steps = obs["params"]["lwe_n"] * prof["calls"]
+    steps = obs["params"]["lwe_n"] * prof["calls"] * obs["bootstrap_calls"]
     least = step_bytes(obs["params"], obs["batch"]) * steps
     return 100.0 * least / yardstick.H100_HBM_BYTES / seconds

@@ -4,9 +4,9 @@
                              --trace <0|1>
 
 from the root of a checkout.  Prints, as the last line of standard output,
-one JSON object: ``correct``, ``attempted`` and ``failed`` (ciphertexts
-bootstrapped in the window, and those whose words differ from the plain
-reference's), ``metrics`` (the cell's end-to-end metrics; with
+one JSON object: ``correct``, ``attempted`` and ``failed`` (the output
+ciphertexts of the window's calls, and those whose words differ from the
+plain reference's), ``metrics`` (the cell's end-to-end metrics; with
 ``--trace 1`` its per-layer metrics), ``device`` and, traced, ``breakdown``;
 its last key, ``checks``, holds each compared number beside its limit,
 which also close standard error.

@@ -1,5 +1,6 @@
 """Shared pieces of the benchmark's own tests: the checkout's root on
-sys.path, toy cells at the program's test profiles, the card fixture."""
+sys.path, toy cells at the program's test profiles, the step fault, the
+card fixture."""
 
 import dataclasses
 import json
@@ -14,7 +15,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
-from benchmark import harness  # noqa: E402
+from benchmark import harness, traffic  # noqa: E402
 
 NAND_MIX = {"op": "gate", "gate": "NAND", "batch": 8, "loop": "closed",
             "chain": False, "distinct_batches": 2}
@@ -33,10 +34,12 @@ TFHE = "benchmark/reference/tfhe.py"
 TFHE_EXT = "benchmark/reference/tfhe_ext.py"
 
 
-def toy_cell(profile: str, mix: dict) -> harness.Cell:
+def toy_cell(profile: str, mix: dict,
+             ops_dir: str = traffic.OPS_DIR) -> harness.Cell:
     """A cell at one of the program's registered test profiles, reporting
     every metric of BENCHMARK.json; judged by ``tfhe_ext.py`` where the
-    profile's tables are extended, else by ``tfhe.py``."""
+    profile's tables are extended, else by ``tfhe.py``; its op found in
+    ``ops_dir``."""
     from go_tfhe_tpu_torch import params
     p = params.get_params(profile)
     config = {"profile": profile,
@@ -46,7 +49,8 @@ def toy_cell(profile: str, mix: dict) -> harness.Cell:
         bench = json.load(f)
     return harness.Cell("toy", 1, config,
                         harness.load_reference(config["reference"]),
-                        dict(mix), bench["end_to_end"], bench["per_layer"])
+                        dict(mix), bench["end_to_end"], bench["per_layer"],
+                        ops_dir)
 
 
 def toy_run(kind: str, seed: int = 2 ** 33 + 5, seconds: float = 0.2,
@@ -54,6 +58,20 @@ def toy_run(kind: str, seed: int = 2 ** 33 + 5, seconds: float = 0.2,
             profile: str | None = None) -> dict:
     return harness.run(toy_cell(profile or PROFILE_OF[kind], MIXES[kind]),
                        seed, seconds, trace, device, time.time())
+
+
+def return_state_unchanged(monkeypatch) -> None:
+    """The fault "a step that returns its state unchanged", on every
+    route: each entry of ``blindrotate.ROUTES``, which ``rotate`` reads,
+    gets steps that hand back the accumulator they were given."""
+    from go_tfhe_tpu_torch.ops import blindrotate
+
+    def unchanged(p, bands, acc, a_tilda, ops):
+        return acc
+
+    for name, route in list(blindrotate.ROUTES.items()):
+        monkeypatch.setitem(blindrotate.ROUTES, name,
+                            route._replace(steps=unchanged))
 
 
 @pytest.fixture

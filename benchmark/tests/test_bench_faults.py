@@ -5,7 +5,7 @@ a cell can have.  (One chip: no exchange between chips to leave out.)"""
 import pytest
 import torch
 
-from conftest import toy_run
+from conftest import return_state_unchanged, toy_run
 
 
 def test_sound_runs_are_correct():
@@ -19,14 +19,7 @@ def test_sound_runs_are_correct():
 
 @pytest.mark.parametrize("kind", ["nand", "chain", "lut", "ext"])
 def test_a_step_that_returns_its_state_unchanged(kind, monkeypatch):
-    from go_tfhe_tpu_torch.ops import blindrotate
-    monkeypatch.setattr(blindrotate, "extprod_t",
-                        lambda digits, band, acc, nd, lo: acc)
-    # the extended routes' products: K5 (transposed keys), K8
-    monkeypatch.setattr(blindrotate, "extprod_ext_t",
-                        lambda digits, band, acc, k, nd, lo: acc)
-    monkeypatch.setattr(blindrotate, "extprod",
-                        lambda digits, band, acc, nd, lo: acc)
+    return_state_unchanged(monkeypatch)
     r = toy_run(kind)
     assert not r["correct"] and r["failed"] == r["attempted"]
 

@@ -1,16 +1,34 @@
-"""The per-layer metrics read from the program's own records
-(``metrics/key_switch.transient_gib.py``, ``metrics/setup.first_launch_s.py``):
-a traced toy run prints what the program recorded, and a program without
-the records (a parent commit's) leaves them out and keeps the others."""
+"""The per-layer metrics read from the program's own records (source
+``program_counter`` or ``program_span`` in BENCHMARK.json, such as
+``metrics/key_switch.transient_gib.py``): a traced toy run prints what the
+program recorded, and a program without the records (a parent commit's)
+leaves them out and keeps the others."""
 
+import json
+import os
+import re
 import sys
 
 import pytest
 
 from benchmark import harness
-from conftest import toy_run
+from conftest import ROOT, toy_run
 
-NEW = ("key_switch.transient_gib", "setup.first_launch_s")
+with open(os.path.join(ROOT, "BENCHMARK.json")) as _f:
+    RECORDED = [m["name"] for m in json.load(_f)["per_layer"]
+                if m["source"] in ("program_counter", "program_span")]
+
+
+def _record_modules() -> set:
+    """The program's modules that the readers of RECORDED take the records
+    from."""
+    found = set()
+    for name in RECORDED:
+        with open(os.path.join(ROOT, "benchmark", "metrics",
+                               name + ".py")) as f:
+            found |= set(re.findall(r'"(go_tfhe_tpu_torch(?:\.\w+)+)"',
+                                    f.read()))
+    return found
 
 
 def _transient_gib(profile: str, batch: int) -> float:
@@ -47,14 +65,21 @@ def test_first_launches_are_summed(monkeypatch):
 
 
 def test_without_the_records_the_old_metrics_stay(monkeypatch):
-    """The program as it stood before it kept these records: its module
-    cannot be imported, the run completes, the new metrics are left out
-    and every other one is read as before."""
+    """The program as it stood before it kept these records: the modules
+    that hold them cannot be imported, the run completes, every metric of
+    the program's records is left out and every other one is read as
+    before."""
+    assert {"key_switch.transient_gib", "setup.first_launch_s",
+            "rotation.ext_t_share", "key_switch.kernel_share"} <= set(
+        RECORDED)
+    modules = _record_modules()
+    assert "go_tfhe_tpu_torch.utils.tracing" in modules
     whole = toy_run("nand", trace=True)["metrics"]
-    monkeypatch.setitem(sys.modules, "go_tfhe_tpu_torch.utils.tracing", None)
+    for name in modules:
+        monkeypatch.setitem(sys.modules, name, None)
     bare = toy_run("nand", trace=True)
     assert bare["correct"]
-    assert not set(NEW) & set(bare["metrics"])
-    assert set(bare["metrics"]) == set(whole) - set(NEW)
-    for name in NEW:
+    assert not set(RECORDED) & set(bare["metrics"])
+    assert set(bare["metrics"]) == set(whole) - set(RECORDED)
+    for name in RECORDED:
         assert harness.load_reader(name).read({}) is None

@@ -286,6 +286,7 @@ def test_the_rooflines_bound_k5_by_operations_and_k4_by_bytes():
            ["void (anonymous namespace)::extprod_ext_t_kernel<3, 0>",
             2 * 1071 * k5_s / 2]]
     obs = {"params": p, "batch": 2048,
+           "bootstrap_calls": 1,
            "profile": {"calls": 2, "device_ops": ops}}
     assert k5.read(obs) == pytest.approx(100.0)
     assert k4.read(obs) == pytest.approx(50.0)

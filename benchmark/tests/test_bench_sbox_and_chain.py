@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from benchmark import control, harness, traffic
-from conftest import ROOT, TFHE, TFHE_EXT, toy_cell
+from conftest import ROOT, TFHE, TFHE_EXT, return_state_unchanged, toy_cell
 
 SBOX_CELL = "pbs-uint8-centered.sbox-b256"
 CHAIN_CELL = "pbs-uint5.lut-chain-b1"
@@ -142,13 +142,7 @@ def test_sound_toy_runs_are_correct(kind, toys):
 
 @pytest.mark.parametrize("kind", ["sbox", "chain"])
 def test_a_step_that_returns_its_state_unchanged(kind, toys, monkeypatch):
-    from go_tfhe_tpu_torch.ops import blindrotate
-    monkeypatch.setattr(blindrotate, "extprod_t",
-                        lambda digits, band, acc, nd, lo: acc)
-    monkeypatch.setattr(blindrotate, "extprod_ext_t",
-                        lambda digits, band, acc, k, nd, lo: acc)
-    monkeypatch.setattr(blindrotate, "extprod",
-                        lambda digits, band, acc, nd, lo: acc)
+    return_state_unchanged(monkeypatch)
     r = _run(toys[kind])
     # In the chain only the first request differs: its output is the
     # key-switched test vector, a ciphertext with a = 0, on which no step
@@ -232,6 +226,7 @@ def test_the_rooflines_bound_k8_by_operations_and_k6_by_bytes():
            ["void rotdec_ext_t_kernel", 9.0],
            ["void extprod_kernel<3, 0>", 2 * 1160 * k8_s / 2]]
     obs = {"params": p, "batch": 256,
+           "bootstrap_calls": 1,
            "profile": {"calls": 2, "device_ops": ops}}
     assert k8.read(obs) == pytest.approx(100.0)
     assert k6.read(obs) == pytest.approx(50.0)

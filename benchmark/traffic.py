@@ -1,183 +1,113 @@
 """The general traffic generator: one traffic mix, a data file under
 ``benchmark/traffic/``, turned into the inputs and calls of a cell.
 
-A mix file holds these keys:
+A mix file holds the common keys
 
-* ``op``: ``"gate"`` (a two-input gate of the program's ``gates`` module,
-  named by ``gate``) or ``"lut"`` (``lut.bootstrap_func`` of the function
-  that ``table`` lists, message by message, over the configuration's
-  message modulus);
+* ``op``: the name of the op, a module ``benchmark/ops/<op>.py`` that
+  makes the requests and calls the program (``gate``: a two-input gate of
+  the program's ``gates`` module; ``lut``: ``lut.bootstrap_func`` of a
+  table);
 * ``batch``: ciphertexts (gate pairs) a call;
 * ``loop``: ``"closed"``: one caller, each call waiting for its result;
 * ``chain``: false: ``distinct_batches`` batches made from the seed, taken
-  in turn; true: each call's first operand is the previous call's output
-  (the first from the seed), a gate's second operand the next of
-  ``fresh_inputs`` ciphertexts made from the seed, in turn.
+  in turn (call k takes batch k mod ``distinct_batches``); true: each
+  call's first operand is the previous call's output (the first from the
+  seed);
+* ``why``;
 
-Inputs are encrypted by the code of the plain reference that the
-configuration names, under the benchmark's own keys; every seed gives the
-same sizes, so only the values change.  Gate operands carry the truth
-table: each of the four input pairs a quarter of a batch, in an order
-drawn from the seed.
+and the op's own keys, its ``KEYS``.  A key that is neither is refused.
+
+An op's module holds ``KEYS`` and a class ``Op``, a subclass of
+:class:`Op` made from the mix, the plain reference module that the
+configuration names and its parameters.  Its methods are the op's
+interface:
+
+* ``bootstrap_calls()``: the ``engine.bootstrap`` calls a request makes,
+  each of ``batch`` ciphertexts;
+* ``make_inputs(gen, keys)``: every input, drawn from the seed's generator
+  before the window; inputs are encrypted by the reference's code under
+  the benchmark's own keys (``keys``: the reference's ``make_keys``), and
+  an op may make further key material here from the reference's code;
+  every seed gives the same sizes, so only the values change;
+* ``request(inputs, k, previous)``: the operands of call k (``previous``:
+  call k-1's output, in a chain);
+* ``call(port, ck, req)``: the timed path, through the program's public
+  entries only (``port``: the program's package, ``ck`` its cloud key);
+  returns the outputs, ``batch`` rows of one or more ciphertexts each,
+  every one of which the harness judges;
+* ``engine_args(port, ck, req)``: (input, test vector) of one of the
+  request's ``engine.bootstrap`` calls, for the layer spans;
+* ``reference(boot, req, testvec)``: the outputs that ``call`` must equal
+  word for word, from the reference's bootstrap ``boot`` (the plain one,
+  or the control) and the gates' constant test vector ``testvec``; in a
+  chain ``req`` is the window's requests stacked along the batch;
+* ``expected(inputs, k, previous)``: the plaintexts of call k's outputs
+  (``previous``: call k-1's, in a chain);
+* ``decrypt(out, keys)``: the plaintexts of outputs;
+* ``deviations(out, plain, keys)``: the outputs' phases less their ideal
+  ones, for the noise margin, or None (the base's).
+
+Adding an op is adding its module under ``benchmark/ops/`` and a mix
+that names it.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 
-import torch
-
-KEYS = {"op", "gate", "table", "batch", "loop", "chain",
-        "distinct_batches", "fresh_inputs", "why"}
+COMMON_KEYS = {"op", "batch", "loop", "chain", "distinct_batches", "why"}
+OPS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "ops")
 
 
-def load(path: str) -> dict:
+def load_op(name, ops_dir: str = OPS_DIR):
+    """The op module ``<ops_dir>/<name>.py``, loaded by path."""
+    if (not isinstance(name, str) or os.path.basename(name) != name
+            or name.startswith(".")
+            or not os.path.isfile(os.path.join(ops_dir, name + ".py"))):
+        raise ValueError(f"no op {name!r} in {ops_dir}")
+    from . import harness          # which imports this module first
+    return harness._load_module("benchmark_op_" + re.sub(r"\W", "_", name),
+                                os.path.join(ops_dir, name + ".py"))
+
+
+def load(path: str, ops_dir: str = OPS_DIR) -> dict:
     with open(path) as f:
         mix = json.load(f)
-    unknown = set(mix) - KEYS
+    op = load_op(mix.get("op"), ops_dir)
+    unknown = set(mix) - COMMON_KEYS - set(op.KEYS)
     if unknown:
         raise ValueError(f"{os.path.basename(path)}: unknown keys "
                          f"{sorted(unknown)}")
     if mix.get("loop") != "closed":
         raise ValueError(f"{path}: only closed loops are generated")
-    if mix["op"] not in ("gate", "lut"):
-        raise ValueError(f"{path}: no op {mix['op']!r}")
     return mix
 
 
-def _bits(gen: torch.Generator, batch: int) -> tuple:
-    """(a, b) plaintext bits: the four pairs of the truth table a quarter
-    of the batch each (the rest from the seed), in the seed's order."""
-    pairs = torch.arange(batch, device=gen.device) % 4
-    extra = batch - batch // 4 * 4
-    if extra:
-        pairs[-extra:] = torch.randint(0, 4, (extra,), generator=gen,
-                                       device=gen.device)
-    pairs = pairs[torch.randperm(batch, generator=gen, device=gen.device)]
-    return pairs >= 2, pairs % 2 == 1
+class Op:
+    """The base of an op's class: the mix, the plain reference module
+    ``ref`` and its parameters ``prm``, the batch, whether it chains."""
+
+    def __init__(self, mix: dict, ref, prm):
+        self.mix, self.ref, self.prm = mix, ref, prm
+        self.batch = mix["batch"]
+        self.chain = bool(mix.get("chain", False))
+
+    def deviations(self, out, plain, keys):
+        return None
 
 
 class Traffic:
-    """The inputs and calls of one mix under one configuration, its data
-    made and judged by the plain reference module ``ref``.
+    """The inputs and calls of one mix under one configuration: the mix,
+    the plain reference module ``ref`` that makes and judges its data, and
+    the mix's op, whose attributes and methods it answers for."""
 
-    ``make_inputs`` draws every input before the window; ``call`` is the
-    timed path; ``engine_args`` the same work as arguments of the
-    program's ``engine`` (for the layer spans); ``reference_args`` the
-    plain reference's input and table; ``expected`` the plaintexts that
-    the outputs should decrypt to."""
-
-    def __init__(self, mix: dict, ref, prm, device):
+    def __init__(self, mix: dict, ref, prm, device, ops_dir: str = OPS_DIR):
         self.mix, self.ref, self.prm, self.device = mix, ref, prm, device
-        self.batch = mix["batch"]
-        self.chain = bool(mix.get("chain", False))
-        self.gate = mix.get("gate")
-        if mix["op"] == "gate" and self.gate not in ref.GATES:
-            raise ValueError(f"no gate {self.gate!r}")
-        if mix["op"] == "lut":
-            m = prm.message_modulus
-            self.table = [int(v) % m for v in mix["table"]]
-            if len(self.table) != m:
-                raise ValueError(f"table of {len(self.table)} messages for "
-                                 f"modulus {m}")
-        elif prm.message_modulus != 2:
-            raise ValueError("gates need a boolean profile")
+        self.op = load_op(mix["op"], ops_dir).Op(mix, ref, prm)
 
-    # -- inputs ---------------------------------------------------------
-
-    def _encrypt(self, gen, plain, keys) -> torch.Tensor:
-        if self.gate:
-            mu = self.ref.encode_bool(plain)
-        else:
-            mu = self.ref.encode_message(plain, self.prm.message_modulus)
-        return self.ref.lwe_encrypt(gen, mu, self.prm.lwe_alpha,
-                                    keys["lv0"])
-
-    def _plain(self, gen, batch) -> torch.Tensor:
-        return torch.randint(0, self.prm.message_modulus, (batch,),
-                             generator=gen, device=gen.device)
-
-    def make_inputs(self, gen: torch.Generator, keys: dict) -> dict:
-        """Batch mixes: ``{"batches": [{"a", "b"?, "plain_a", "plain_b"?}]}``;
-        chains: ``{"first", "plain_first", "fresh", "plain_fresh"}``."""
-        if self.chain:
-            first = self._plain(gen, self.batch)
-            out = {"plain_first": first,
-                   "first": self._encrypt(gen, first > 0 if self.gate
-                                          else first, keys)}
-            if self.gate:
-                n = self.mix["fresh_inputs"]
-                fresh = self._plain(gen, n * self.batch) > 0
-                out["plain_fresh"] = fresh.reshape(n, self.batch)
-                out["fresh"] = self._encrypt(gen, fresh, keys).reshape(
-                    n, self.batch, -1)
-            return out
-        batches = []
-        for _ in range(self.mix["distinct_batches"]):
-            if self.gate:
-                pa, pb = _bits(gen, self.batch)
-                batches.append({"plain_a": pa, "plain_b": pb,
-                                "a": self._encrypt(gen, pa, keys),
-                                "b": self._encrypt(gen, pb, keys)})
-            else:
-                pa = self._plain(gen, self.batch)
-                batches.append({"plain_a": pa,
-                                "a": self._encrypt(gen, pa, keys)})
-        return {"batches": batches}
-
-    def request(self, inputs: dict, k: int, previous=None) -> dict:
-        """The operands of call k (``previous``: call k-1's output, for a
-        chain)."""
-        if not self.chain:
-            batches = inputs["batches"]
-            return batches[k % len(batches)]
-        a = inputs["first"] if previous is None else previous
-        if not self.gate:
-            return {"a": a}
-        fresh = inputs["fresh"]
-        return {"a": a, "b": fresh[k % fresh.shape[0]]}
-
-    # -- the program ----------------------------------------------------
-
-    def call(self, port, ck, req: dict) -> torch.Tensor:
-        """The timed path: the gate, or the PBS, through the program's
-        public entry."""
-        if self.gate:
-            return getattr(port.gates, self.gate)(ck, req["a"], req["b"])
-        table = self.table
-        return port.lut.bootstrap_func(ck, req["a"], lambda x: table[x],
-                                       self.prm.message_modulus)
-
-    def engine_args(self, port, ck, req: dict) -> tuple:
-        """(input, test vector) that ``call`` hands ``engine.bootstrap``."""
-        if self.gate:
-            prepare = getattr(port.engine, "prepare_" + self.gate.lower())
-            return prepare(req["a"], req["b"]), None
-        table = self.table
-        gen = port.lut.Generator(ck.params, self.prm.message_modulus,
-                                 device=req["a"].device)
-        return req["a"], gen.gen_lut(lambda x: table[x])
-
-    # -- the reference --------------------------------------------------
-
-    def reference_args(self, req: dict, testvec: torch.Tensor) -> tuple:
-        """(input, test vector) of the plain bootstrap for ``req``;
-        ``testvec``: the gates' constant test vector."""
-        if self.gate:
-            return (self.ref.gate_input(self.gate, req["a"], req["b"]),
-                    testvec)
-        return req["a"], self.ref.lut_testvec(self.prm, self.table,
-                                              self.prm.message_modulus,
-                                              req["a"].device)
-
-    def expected(self, plain_a, plain_b=None) -> torch.Tensor:
-        if self.gate:
-            return self.ref.TRUTH[self.gate](plain_a, plain_b)
-        return torch.tensor(self.table, device=plain_a.device)[plain_a]
-
-    def decrypt(self, out: torch.Tensor, keys: dict) -> torch.Tensor:
-        if self.gate:
-            return self.ref.decrypt_bool(out, keys["lv0"])
-        return self.ref.decrypt_message(out, self.prm.message_modulus,
-                                        keys["lv0"])
+    def __getattr__(self, name):
+        if name == "op":                # not made: no op to answer
+            raise AttributeError(name)
+        return getattr(self.op, name)
